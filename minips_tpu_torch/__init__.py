@@ -1,0 +1,19 @@
+"""minips_tpu_torch — the PyTorch and CUDA port of ``minips_tpu``.
+
+The JAX package stays the reference; this package runs beside it on an
+NVIDIA H100 and imports neither JAX nor anything of ``minips_tpu``.
+Module paths mirror the JAX package's, so each counterpart is easy to
+find. Every entry point takes ``device=`` and defaults to the card; the
+CPU runs only when a caller asks for it (the parity tests do).
+
+The slice ported so far is the fused LR + MLP parameter-server training
+step (``apps/lrmlp.py``), whose every row gather runs through the
+hand-written CUDA kernel of ``ops/gather.py``.
+"""
+
+import torch
+
+# Full float32 products and convolutions: TF32 keeps about three decimal
+# digits and would loosen every comparison with the JAX package.
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False

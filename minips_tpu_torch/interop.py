@@ -1,0 +1,46 @@
+"""Carry table state between the JAX package and the port, as numpy.
+
+``jax.random`` and ``torch.Generator`` give different numbers from the
+same seed, so a comparison of the two packages starts both from identical
+weights by carrying them across. The JAX side hands over:
+
+- a sparse table: the dict of ``SparseTable.state_dict()`` — ``emb``,
+  ``layout``, then ``accum`` (adagrad) or ``m``, ``v``, ``steps`` (adam);
+- a dense table: the padded flat ``params`` and the list
+  ``jax.tree.leaves(opt_state)`` in leaf order — adagrad gives
+  ``[sum_of_squares]``, adam ``[count, mu, nu]``.
+
+The reverse direction returns the port's state in the same layout, for
+comparing final states. This module imports neither JAX nor the JAX
+package: the caller does the ``jax.tree.leaves`` on its side.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from minips_tpu_torch.tables.dense import DenseTable
+from minips_tpu_torch.tables.sparse import SparseTable
+
+
+def load_sparse(table: SparseTable, state: dict) -> None:
+    """Load a JAX ``SparseTable.state_dict()`` (numpy arrays)."""
+    table.load_state_dict({k: np.asarray(v) for k, v in state.items()})
+
+
+def sparse_to_numpy(table: SparseTable) -> dict:
+    """The port's table as a JAX-layout ``state_dict``."""
+    return table.state_dict()
+
+
+def load_dense(table: DenseTable, params, opt_leaves) -> None:
+    """Load the JAX table's padded flat params and its opt-state leaves
+    (``jax.tree.leaves(opt_state)``, in that order)."""
+    table.load_state_dict({"params": np.asarray(params),
+                           "opt_state": [np.asarray(x) for x in opt_leaves]})
+
+
+def dense_to_numpy(table: DenseTable) -> tuple[np.ndarray, list]:
+    """``(params, opt_leaves)`` in the JAX package's layout and leaf order."""
+    state = table.state_dict()
+    return state["params"], state["opt_state"]

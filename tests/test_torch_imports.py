@@ -1,0 +1,73 @@
+"""The port stands alone: no JAX, no ``minips_tpu``, and the card by default.
+
+Each check runs in a fresh interpreter, since this test process has
+imported both packages.
+"""
+
+from __future__ import annotations
+
+import os
+import shutil
+import subprocess
+import sys
+
+import pytest
+import torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _run(code: str, cwd: str = REPO) -> subprocess.CompletedProcess:
+    env = dict(os.environ, PYTHONPATH=REPO)
+    return subprocess.run([sys.executable, "-c", code], cwd=cwd, env=env,
+                          capture_output=True, text=True, timeout=120)
+
+
+def _no_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("checks behaviour on a machine without CUDA")
+
+
+def test_port_imports_neither_jax_nor_the_jax_package():
+    r = _run(
+        "import importlib, pkgutil, sys\n"
+        "import minips_tpu_torch\n"
+        "names = [m.name for m in pkgutil.walk_packages(\n"
+        "    minips_tpu_torch.__path__, 'minips_tpu_torch.')]\n"
+        "for n in names:\n"
+        "    importlib.import_module(n)\n"
+        "bad = sorted(k for k in sys.modules\n"
+        "             if k.split('.')[0] in ('jax', 'jaxlib', 'optax',\n"
+        "                                    'minips_tpu'))\n"
+        "print(len(names), bad)\n")
+    assert r.returncode == 0, r.stderr
+    count, bad = r.stdout.split(" ", 1)
+    assert int(count) >= 20 and bad.strip() == "[]", r.stdout
+
+
+@pytest.mark.parametrize("entry", [
+    "from minips_tpu_torch.parallel.mesh import resolve_device; "
+    "resolve_device(None)",
+    "from minips_tpu_torch.tables.sparse import SparseTable; "
+    "SparseTable(16, 2)",
+    "from minips_tpu_torch.tables.dense import DenseTable; "
+    "import torch; DenseTable({'w': torch.zeros(2)})",
+    "from minips_tpu_torch.apps.lrmlp import build_lrmlp; build_lrmlp(8)",
+])
+def test_entry_points_default_to_cuda_and_raise_without_it(entry):
+    _no_cuda()
+    r = _run(entry)
+    assert r.returncode != 0
+    assert "CUDA is not available" in r.stderr
+
+
+def test_chip_smoke_fails_without_cuda(tmp_path):
+    _no_cuda()
+    r = subprocess.run([sys.executable, "chip_smoke.py"], cwd=REPO,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode != 0 and '"ok"' not in r.stdout
+    # and alone, without the package beside it
+    shutil.copy(os.path.join(REPO, "chip_smoke.py"), tmp_path)
+    r = subprocess.run([sys.executable, "chip_smoke.py"], cwd=tmp_path,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode != 0 and '"ok"' not in r.stdout
