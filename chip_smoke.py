@@ -6,21 +6,34 @@ Run from the root of a checkout, on a machine with one NVIDIA card:
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from ``minips_tpu_torch/csrc`` and drives
-the port's main path — the fused LR + MLP parameter-server training step of
-``minips_tpu_torch/apps/lrmlp.py`` at full width (B = 65536, 13 dense and
-26 categorical fields, tables of 2^18 rows) — through the entry points a
-user calls. Phases, each of which raises on failure:
+the port's two training paths through the entry points a user calls: the
+fused LR + MLP parameter-server step of ``minips_tpu_torch/apps/lrmlp.py``
+at full width (B = 65536, 13 dense and 26 categorical fields, tables of
+2^18 rows), and the decoder LM's dense step of
+``minips_tpu_torch/apps/lm.py`` at ``bench_lm``'s full width (8 blocks of
+width 2048, 32 heads of 64, vocab 2^14, B = 16, T = 1024, bf16 compute,
+Adam, flash attention, head chunks of 128). Phases, each of which raises
+on failure:
 
 1. device: requires CUDA; prints the card's name and power limit;
 2. build: compiles every kernel, all sources at once, and times it;
-3. kernels: each kernel against its plain PyTorch version on the card
-   (the row gather must be bit-exact), and their times beside the least
-   time the card could take and one PyTorch call's time;
+3. kernels: the row gather against its plain PyTorch version on the card
+   (bit-exact);
 4. hash: the key hash on the card, bit-identical to its numpy twin;
-5. main path: 20 steps of both models, with finite and falling loss, the
-   kernels' launch counts, the same first 3 steps on the CPU port from the
-   same weights, and the step time on the card;
-6. pull: ``SparseTable.pull`` through the kernel at D = 8 and D = 128.
+5. LR + MLP path: 20 steps of both models, with finite and falling loss,
+   the row gather's launch count, the same first 3 steps on the CPU port
+   from the same weights, and the step time on the card;
+6. pull: ``SparseTable.pull`` through the kernel at D = 8 and D = 128;
+7. flash kernels: K2, K3 and K4 against their plain versions (f32 and
+   bf16, causal and not, GQA, global offsets, ragged T, the full-width
+   shape), the gradients through the autograd op with a nonzero lse
+   cotangent;
+8. LM path: 10 steps at full width, with finite and falling loss, each
+   flash kernel launched once per block per step, step time, tokens/s and
+   the profiler's idle share; the first 3 steps of a small LM on the card
+   and on the CPU port from the same weights;
+9. timings: every kernel's time at its main path's shapes beside its plain
+   version's, one PyTorch call's and the least time the card could take.
 
 The last two lines are a JSON object with every kernel's numbers and then
 ``{"ok": true, "device": {...}}``. Without CUDA, or without the package
@@ -50,6 +63,25 @@ LOSS_TOL = 5e-3
 TIMED_LAUNCHES = 30  # per kernel timing; the median is reported
 SLEEP_CYCLES = 200_000_000  # ~0.1 s at H100 clocks: covers queueing them
 PROFILED_STEPS = 3
+LM_CHAIN = 10
+LM_REPS = 3
+LM_PROFILED_STEPS = 2
+# |loss(card) - loss(CPU)| bound over the small LM's first CPU_STEPS steps.
+# Both run bf16 matmuls (8 bits of mantissa) rounding at the same points,
+# but sum in other orders (cuBLAS and the kernels vs the CPU's GEMMs and
+# the plain versions, whose forward tiles K at 256 rows, not 64), so a
+# logit can differ by a rounding step of 2^-8; the mean cross-entropy over
+# 512 tokens moves by far less than this.
+LM_LOSS_TOL = 1e-2
+# flash kernels against their plain versions: max |err| over
+# max(1, max |plain|). float32: the same f32 arithmetic summed in another
+# order. bf16: the rounding points are shared (p, ds, p^T, the outputs), so
+# the f32 summation order can flip one of them by one bf16 step, 2^-8 of
+# the value, at most 2^-7 of the largest value.
+FLASH_TOL = {"float32": 1e-4, "bfloat16": 2.0 ** -7}
+LSE_TOL = 1e-4  # lse is float32 on both sides
+# peak rates of an H100 SXM (NVIDIA data sheet): dense bf16 tensor cores
+BF16_FLOPS = 989e12
 # Device memory rate by card, bytes/s (NVIDIA data sheets); the H100 SXM's
 # 3.35 TB/s unless the name says otherwise.
 MEM_BW = (("H100 PCIe", 2.0e12), ("H100 NVL", 3.9e12), ("H200", 4.8e12),
@@ -89,6 +121,105 @@ def time_ms(torch, fn) -> float:
     return statistics.median(s.elapsed_time(e) for s, e in ev)
 
 
+def flash_errors(torch, tfa, case, dtype, causal, seed) -> dict:
+    """K2 forward and K3/K4 (through the autograd op, with nonzero output
+    and lse cotangents) on one case, each against its plain version on the
+    same inputs. Raises on a mismatch; returns each kernel's max |err|."""
+    B, Tq, Tk, H, Hk, D, q_off, k_off = case
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def rnd(*shape, dt=dtype):
+        return torch.randn(shape, generator=gen, device=dev).to(dt)
+
+    q, k, v = (rnd(B, Tq, H, D).requires_grad_(True),
+               rnd(B, Tk, Hk, D).requires_grad_(True),
+               rnd(B, Tk, Hk, D).requires_grad_(True))
+    g_out, g_lse = rnd(B, Tq, H, D), rnd(B, H, Tq, 1, dt=torch.float32)
+    scale = D ** -0.5
+    before = (tfa.flash_forward.launches, tfa.flash_bwd_dq.launches,
+              tfa.flash_bwd_dkv.launches)
+    out, lse = tfa.flash_with_lse(q, k, v, q_off, k_off, causal=causal)
+    dq, dk, dv = torch.autograd.grad((out, lse), (q, k, v), (g_out, g_lse))
+    torch.cuda.synchronize()
+    after = (tfa.flash_forward.launches, tfa.flash_bwd_dq.launches,
+             tfa.flash_bwd_dkv.launches)
+    check(tuple(a - b for a, b in zip(after, before)) == (1, 1, 1),
+          f"flash op did not launch K2, K3, K4 once each: {before} {after}")
+    q, k, v, out, lse = (x.detach() for x in (q, k, v, out, lse))
+    kw = dict(causal=causal, scale=scale)
+    ref, rlse = tfa.flash_forward_reference(q, k, v, q_off, k_off, **kw)
+    # the backward's inputs as the op formed them from the kernel's outputs
+    dvec = ((g_out.float() * out.float()).sum(-1).transpose(1, 2)[..., None]
+            - g_lse)
+    rdq = tfa.flash_bwd_dq_reference(q, k, v, g_out, lse, dvec, q_off,
+                                     k_off, **kw)
+    rdk, rdv = tfa.flash_bwd_dkv_reference(q, k, v, g_out, lse, dvec, q_off,
+                                           k_off, **kw)
+    tol = FLASH_TOL[str(dtype).split(".")[-1]]
+    errs = {}
+    for kernel, pairs in (("flash_forward", ((out, ref),)),
+                          ("flash_bwd_dq", ((dq, rdq),)),
+                          ("flash_bwd_dkv", ((dk, rdk), (dv, rdv)))):
+        worst = 0.0
+        for got, want in pairs:
+            check(got.shape == want.shape and got.dtype == want.dtype,
+                  f"{kernel} shape/dtype {tuple(got.shape)} {got.dtype}")
+            err = float((got.float() - want.float()).abs().max())
+            scale_ref = max(1.0, float(want.float().abs().max()))
+            check(err <= tol * scale_ref,
+                  f"{kernel} differs from its plain version: case {case} "
+                  f"{dtype} causal={causal}: max err {err} > {tol} x "
+                  f"{scale_ref}")
+            worst = max(worst, err)
+        errs[kernel] = worst
+    lerr = float((lse - rlse).abs().max())
+    check(lerr <= LSE_TOL, f"flash_forward lse differs by {lerr}: case "
+          f"{case} {dtype} causal={causal}")
+    return errs
+
+
+def attention_work(B, Tq, Tk, H, Hk, D, q_off, k_off, causal, item):
+    """(live (q, k) pairs, bytes each of K2, K3, K4 must move): each input
+    read once, each output written once."""
+    import numpy as np
+
+    qi = np.arange(Tq)[:, None] + q_off
+    kj = np.arange(Tk)[None, :] + k_off
+    pairs = B * H * int((qi >= kj).sum() if causal else Tq * Tk)
+    qb, kb, rows = B * Tq * H * D * item, B * Tk * Hk * D * item, B * H * Tq * 4
+    return pairs, {
+        "flash_forward": 2 * qb + 2 * kb + rows,             # q, k, v; o, lse
+        "flash_bwd_dq": 3 * qb + 2 * kb + 2 * rows,          # q, dO, k, v,
+        "flash_bwd_dkv": 2 * qb + 4 * kb + 2 * rows}         # lse, dvec; out
+
+
+def device_time(torch, run, steps: int, step_ms: float) -> dict:
+    """Where a step's device time goes: kernel intervals from the profiler
+    over ``run()`` (``steps`` steps), beside the unprofiled step time (the
+    profiler slows the host)."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    by_name: dict = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            ms, calls = by_name.get(e.name, (0.0, 0))
+            by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3,
+                               calls + 1)
+    busy = sum(ms for ms, _ in by_name.values()) / steps
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
+    return {
+        "device_busy_ms": busy if by_name else "not measured",
+        "device_idle_share": (1 - busy / step_ms) if by_name
+        else "not measured",
+        "device_ops": sum(c for _, c in by_name.values()) / steps,
+        "top": [{"name": n[:80], "ms": ms / steps, "calls": c / steps}
+                for n, (ms, c) in top]}
+
+
 def main() -> int:
     import torch
 
@@ -101,6 +232,7 @@ def main() -> int:
     import numpy as np
 
     from minips_tpu_torch import interop
+    from minips_tpu_torch.apps.lm import build_lm
     from minips_tpu_torch.apps.lrmlp import build_lrmlp
     from minips_tpu_torch.ops import _build
     from minips_tpu_torch.ops.gather import (gather_rows,
@@ -118,7 +250,7 @@ def main() -> int:
 
     # ----------------------------------------------------------- 2. build
     t0 = time.perf_counter()
-    logs = _build.build_all(["gather_rows"])
+    logs = _build.build_all(["gather_rows", "flash_attn"])
     build_s = time.perf_counter() - t0
     print(f"build: {build_s:.2f} s for {sorted(logs) or 'cached'}",
           flush=True)
@@ -242,29 +374,9 @@ def main() -> int:
     print("step time on the card (LR + MLP pair, median of "
           f"{REPS} chains): " + json.dumps(step), flush=True)
 
-    # where a step's device time goes: kernel intervals from the profiler,
-    # beside the unprofiled step time (the profiler slows the host)
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        run_steps(p, PROFILED_STEPS)
-        torch.cuda.synchronize()
-    by_name: dict = {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            ms, calls = by_name.get(e.name, (0.0, 0))
-            by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3,
-                               calls + 1)
-    busy = sum(ms for ms, _ in by_name.values()) / PROFILED_STEPS
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
-    print("device time per step (torch.profiler): " + json.dumps({
-        "device_busy_ms": busy if by_name else "not measured",
-        "device_idle_share": (1 - busy / step["step_ms"]) if by_name
-        else "not measured",
-        "device_ops": sum(c for _, c in by_name.values()) / PROFILED_STEPS,
-        "top": [{"name": n[:80], "ms": ms / PROFILED_STEPS,
-                 "calls": c / PROFILED_STEPS} for n, (ms, c) in top]}),
-        flush=True)
+    print("device time per step (torch.profiler): " + json.dumps(
+        device_time(torch, lambda: run_steps(p, PROFILED_STEPS),
+                    PROFILED_STEPS, step["step_ms"])), flush=True)
 
     # ------------------------------------------------------------ 6. pull
     before = gather_rows.launches
@@ -284,7 +396,106 @@ def main() -> int:
     print("pull: [65536, 26] keys at D=8 and 65536 keys at D=128 equal "
           "emb[hash(keys)], both through the kernel", flush=True)
 
-    # --------------------------------- kernel times at the main path's shapes
+    # ---------------------------------- 7. flash kernels vs plain versions
+    from minips_tpu_torch.ops import flash_attention as tfa
+
+    flash = ("flash_forward", "flash_bwd_dq", "flash_bwd_dkv")
+    flash_err = dict.fromkeys(flash, 0.0)
+    flash_cases = [  # (B, Tq, Tk, H, Hk, D, q_off, k_off)
+        (2, 128, 128, 4, 4, 64, 0, 0),       # MHA
+        (1, 256, 256, 8, 2, 64, 0, 0),       # GQA, g = 4
+        (1, 128, 256, 4, 4, 64, 128, 0),     # global offsets, Tq != Tk
+        (1, 64, 192, 4, 1, 128, 128, 64),    # offsets, MQA, D = 128
+        (1, 100, 100, 8, 2, 40, 0, 0),       # ragged T, D = 40
+    ]
+    n_cases = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        for causal in (False, True):
+            for case in flash_cases:
+                for name, err in flash_errors(torch, tfa, case, dtype, causal,
+                                              n_cases).items():
+                    flash_err[name] = max(flash_err[name], err)
+                n_cases += 1
+    LM_B, LM_T, LM_DIM, LM_DEPTH = 16, 1024, 2048, 8
+    full = (LM_B, LM_T, LM_T, LM_DIM // 64, LM_DIM // 64, 64, 0, 0)
+    for name, err in flash_errors(torch, tfa, full, torch.bfloat16, True,
+                                  n_cases).items():
+        flash_err[name] = max(flash_err[name], err)
+    print(f"flash kernels: {n_cases + 1} cases against the plain versions "
+          "(f32 and bf16, causal and not, MHA/GQA g=4/MQA, offsets, ragged "
+          f"T=100, D 40/64/128, full width {full} bf16 causal), gradients "
+          f"with a nonzero lse cotangent; max |err| {flash_err}; tolerance "
+          f"{FLASH_TOL} of max(1, max |value|), lse {LSE_TOL}", flush=True)
+
+    # ------------------------------------------------------------ 8. LM path
+    torch.cuda.reset_peak_memory_stats()
+    lm = build_lm(LM_B, LM_T, dim=LM_DIM, depth=LM_DEPTH, device=dev, seed=0)
+
+    def lm_steps(model, steps):
+        return [model.table.step_inplace(model.step, model.batches[i % 2])
+                for i in range(steps)]
+
+    torch.cuda.synchronize()
+    gather_rows.launches = 0
+    for name in flash:
+        getattr(tfa, name).launches = 0
+    lm_losses = lm_steps(lm, LM_CHAIN)
+    torch.cuda.synchronize()
+    lm_launches = {name: getattr(tfa, name).launches for name in flash}
+    lm_launches["gather_rows"] = gather_rows.launches
+    lm_losses = [float(x) for x in lm_losses]
+    check(all(math.isfinite(x) for x in lm_losses),
+          f"non-finite LM loss: {lm_losses}")
+    check(lm_losses[-1] < lm_losses[0],
+          f"LM loss did not fall: {lm_losses}")
+    for name in flash:
+        check(lm_launches[name] == LM_DEPTH * LM_CHAIN,
+              f"{name} launched {lm_launches[name]} times in {LM_CHAIN} "
+              f"steps of {LM_DEPTH} blocks, expected {LM_DEPTH * LM_CHAIN}")
+    print(f"LM path: {LM_CHAIN} steps at B={LM_B} T={LM_T} dim={LM_DIM} "
+          f"depth={LM_DEPTH} heads={lm.heads} vocab={1 << 14}, bf16, "
+          f"{lm.table.num_keys} params; loss {lm_losses[0]:.6f} -> "
+          f"{lm_losses[-1]:.6f} ({lm_losses}); launches {lm_launches}",
+          flush=True)
+
+    lm_chain_s = []
+    for _ in range(LM_REPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        last = lm_steps(lm, LM_CHAIN)[-1]
+        torch.cuda.synchronize()
+        lm_chain_s.append(time.perf_counter() - t0)
+        check(math.isfinite(float(last)), "non-finite LM loss")
+    lm_med = statistics.median(lm_chain_s)
+    lm_step = {"card": card, "batch": LM_B, "seq": LM_T, "chain": LM_CHAIN,
+               "reps": LM_REPS, "step_ms": 1e3 * lm_med / LM_CHAIN,
+               "tokens_per_s": LM_B * LM_T * LM_CHAIN / lm_med,
+               "chain_s": lm_chain_s,
+               "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    print("LM step time on the card (median of "
+          f"{LM_REPS} chains): " + json.dumps(lm_step), flush=True)
+    print("LM device time per step (torch.profiler): " + json.dumps(
+        device_time(torch, lambda: lm_steps(lm, LM_PROFILED_STEPS),
+                    LM_PROFILED_STEPS, lm_step["step_ms"])), flush=True)
+    del lm
+
+    small = dict(dim=256, depth=2, vocab=1024, seed=0)
+    card_lm = build_lm(2, 256, device=dev, **small)
+    state = interop.dense_to_numpy(card_lm.table)
+    card_l = [float(x) for x in lm_steps(card_lm, CPU_STEPS)]
+    cpu_lm = build_lm(2, 256, device="cpu", **small)
+    interop.load_dense(cpu_lm.table, *state)
+    cpu_l = [float(x) for x in lm_steps(cpu_lm, CPU_STEPS)]
+    lm_diff = max(abs(a - b) for a, b in zip(card_l, cpu_l))
+    check(lm_diff <= LM_LOSS_TOL, f"small LM: card and CPU losses differ by "
+          f"{lm_diff} > {LM_LOSS_TOL}: card {card_l} cpu {cpu_l}")
+    print(f"small LM (dim 256, depth 2, 4 heads, T 256, B 2, vocab 1024), "
+          f"card vs CPU port, first {CPU_STEPS} steps from the same weights:"
+          f" card {card_l} cpu {cpu_l}, max |loss diff| {lm_diff:.3e} "
+          f"(tolerance {LM_LOSS_TOL})", flush=True)
+    del card_lm, cpu_lm
+
+    # ------------------------------------------------------------ 9. timings
     shapes = []
     for table, salt in ((p.wide, 1), (p.emb, 2)):
         slots = hash_to_slots(cats, S, salt).reshape(-1)
@@ -317,6 +528,82 @@ def main() -> int:
         "bound_by": "bytes",
         "shapes": shapes,
     }]
+
+    # K2-K4 at the LM's shape: q, k, v strided views of one fused qkv
+    # activation, as the block hands them over; the library yardstick is
+    # scaled_dot_product_attention (causal) on [B, H, T, D], forward for
+    # K2 and its backward (dQ, dK, dV together) for K3 and K4
+    B_, T_, H_, D_ = LM_B, LM_T, LM_DIM // 64, 64
+    gen = torch.Generator(device=dev).manual_seed(1)
+    qkv = torch.randn((B_, T_, 3, H_ * D_), generator=gen,
+                      device=dev).to(torch.bfloat16)
+    q, k, v = (qkv[:, :, i].reshape(B_, T_, H_, D_) for i in range(3))
+    g_out = torch.randn((B_, T_, H_, D_), generator=gen,
+                        device=dev).to(torch.bfloat16)
+    kw = dict(causal=True, scale=D_ ** -0.5)
+    out, lse = tfa.flash_forward(q, k, v, **kw)
+    dvec = (g_out.float() * out.float()).sum(-1).transpose(1, 2)[..., None]
+    sq, sk, sv = (x.transpose(1, 2).contiguous().requires_grad_(True)
+                  for x in (q, k, v))
+    s_out = torch.nn.functional.scaled_dot_product_attention(
+        sq, sk, sv, is_causal=True)
+    s_g = g_out.transpose(1, 2).contiguous()
+    pairs, nbytes = attention_work(B_, T_, T_, H_, H_, D_, 0, 0, True, 2)
+    flops = {"flash_forward": 4 * D_ * pairs, "flash_bwd_dq": 6 * D_ * pairs,
+             "flash_bwd_dkv": 8 * D_ * pairs}
+    runs = {
+        "flash_forward": (lambda: tfa.flash_forward(q, k, v, **kw),
+                          lambda: tfa.flash_forward_reference(q, k, v, **kw),
+                          lambda: torch.nn.functional
+                          .scaled_dot_product_attention(sq, sk, sv,
+                                                        is_causal=True)),
+        "flash_bwd_dq": (lambda: tfa.flash_bwd_dq(q, k, v, g_out, lse, dvec,
+                                                  **kw),
+                         lambda: tfa.flash_bwd_dq_reference(
+                             q, k, v, g_out, lse, dvec, **kw),
+                         lambda: torch.autograd.grad(
+                             s_out, (sq, sk, sv), s_g, retain_graph=True)),
+        "flash_bwd_dkv": (lambda: tfa.flash_bwd_dkv(q, k, v, g_out, lse,
+                                                    dvec, **kw),
+                          lambda: tfa.flash_bwd_dkv_reference(
+                              q, k, v, g_out, lse, dvec, **kw),
+                          None),
+    }
+    replaces = {"flash_forward": "minips_tpu/ops/flash_attention.py:190",
+                "flash_bwd_dq": "minips_tpu/ops/flash_attention.py:297",
+                "flash_bwd_dkv": "minips_tpu/ops/flash_attention.py:332"}
+    sdpa_bwd_ms = None
+    for name in flash:
+        kernel_fn, plain_fn, lib_fn = runs[name]
+        ms = time_ms(torch, kernel_fn)
+        plain = time_ms(torch, plain_fn)
+        if lib_fn is not None:
+            lib = time_ms(torch, lib_fn)
+            if name == "flash_bwd_dq":
+                sdpa_bwd_ms = lib
+        else:
+            lib = sdpa_bwd_ms
+        t_bytes = 1e3 * nbytes[name] / mem_bw
+        t_ops = 1e3 * flops[name] / BF16_FLOPS
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "minips_tpu_torch/csrc/flash_attn.cu",
+            "replaces": replaces[name],
+            "launches": lm_launches[name],
+            "max_abs_err": flash_err[name],
+            "ms": ms, "plain_ms": plain, "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": lib,
+            "library_call": ("scaled_dot_product_attention(is_causal=True) "
+                             + ("forward" if name == "flash_forward" else
+                                "backward, dQ dK dV together")),
+            "shape": {"B": B_, "T": T_, "H": H_, "Hk": H_, "D": D_,
+                      "dtype": "bfloat16", "causal": True,
+                      "live_pairs": pairs, "flops": flops[name],
+                      "bytes": nbytes[name]},
+        })
+        print(f"{name} at the LM's shape: " + json.dumps(kernels[-1]),
+              flush=True)
     print(f"card: {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

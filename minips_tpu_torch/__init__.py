@@ -6,9 +6,11 @@ Module paths mirror the JAX package's, so each counterpart is easy to
 find. Every entry point takes ``device=`` and defaults to the card; the
 CPU runs only when a caller asks for it (the parity tests do).
 
-The slice ported so far is the fused LR + MLP parameter-server training
-step (``apps/lrmlp.py``), whose every row gather runs through the
-hand-written CUDA kernel of ``ops/gather.py``.
+Ported so far: the fused LR + MLP parameter-server training step
+(``apps/lrmlp.py``), whose every row gather runs through the hand-written
+CUDA kernel of ``ops/gather.py``, and the decoder LM's dense training step
+(``apps/lm.py``), whose attention runs through the hand-written flash
+kernels of ``ops/flash_attention.py``.
 """
 
 import torch

@@ -18,9 +18,12 @@ package: the caller does the ``jax.tree.leaves`` on its side.
 from __future__ import annotations
 
 import numpy as np
+import torch
 
+from minips_tpu_torch.parallel.mesh import DeviceLike, resolve_device
 from minips_tpu_torch.tables.dense import DenseTable
 from minips_tpu_torch.tables.sparse import SparseTable
+from minips_tpu_torch.utils.tree import tree_map
 
 
 def load_sparse(table: SparseTable, state: dict) -> None:
@@ -31,6 +34,14 @@ def load_sparse(table: SparseTable, state: dict) -> None:
 def sparse_to_numpy(table: SparseTable) -> dict:
     """The port's table as a JAX-layout ``state_dict``."""
     return table.state_dict()
+
+
+def tree_from_numpy(tree, device: DeviceLike = None):
+    """A nested dict/list of numpy arrays (the JAX package's params via
+    ``jax.tree.map(np.asarray, ...)`` or plain ``np.asarray`` leaves) as the
+    port's tree of tensors on ``device`` (the card by default)."""
+    device = resolve_device(device)
+    return tree_map(lambda x: torch.as_tensor(np.array(x)).to(device), tree)
 
 
 def load_dense(table: DenseTable, params, opt_leaves) -> None:

@@ -1,21 +1,24 @@
 """DenseTable — the port of ``minips_tpu/tables/dense.py``.
 
 A dense table is a flat parameter vector: the template's leaves raveled in
-``jax.flatten_util.ravel_pytree`` order (sorted dict keys, each leaf
-row-major), zero-padded to the range partition, with a server-side
-updater applied at push. Keeping JAX's ravel order lets the two packages
-exchange parameters and optimizer state as flat vectors; for the MLP tower
-that order is ``b0, b1, b2, w0, w1, w2``, for LR ``b, w``.
+``jax.flatten_util.ravel_pytree`` order (dict children in sorted-key
+order, list children in order, each leaf row-major), zero-padded to the
+range partition, with a server-side updater applied at push. Keeping JAX's
+ravel order lets the two packages exchange parameters and optimizer state
+as flat vectors; for the MLP tower that order is ``b0, b1, b2, w0, w1,
+w2``, for LR ``b, w``, for the LM ``blocks[0..]``, ``ln_f``, ``pos_emb``,
+``tok_emb``.
 
-World size is 1 in this slice: the pull is a read and the push the
-updater on the one shard. The JAX package's fused ``make_step`` is not on
-this slice's path and waits for the next one.
+World size is 1: the pull is a read and the push the updater on the one
+shard. ``make_step`` fuses pull, gradient, push and update into one call,
+as the JAX package's does, with ``accum``, ``compute_dtype``,
+``grad_reduce`` and the global-norm clip.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Any, Optional
+from typing import Any, Callable, Optional
 
 import numpy as np
 import torch
@@ -24,8 +27,8 @@ from minips_tpu_torch.parallel.mesh import (WORLD_SIZE, DeviceLike,
                                             resolve_device)
 from minips_tpu_torch.parallel.partition import RangePartitioner
 from minips_tpu_torch.tables.updaters import LearningRate, make_updater
-
-PyTree = Any  # nested dicts of tensors
+from minips_tpu_torch.utils.tree import PyTree, tree_leaves, tree_map, \
+    tree_rebuild
 
 
 def _host(t: torch.Tensor) -> np.ndarray:
@@ -33,18 +36,12 @@ def _host(t: torch.Tensor) -> np.ndarray:
     return t.detach().to("cpu", copy=True).numpy()
 
 
-def _leaves(tree: PyTree) -> list:
-    if isinstance(tree, dict):
-        return [leaf for k in sorted(tree) for leaf in _leaves(tree[k])]
-    return [tree]
-
-
 def ravel(tree: PyTree, device: Optional[torch.device] = None):
-    """``ravel_pytree`` for nested dicts: (flat vector, unravel). Leaves go
-    in sorted-key order, each flattened row-major. ``unravel(flat)``
-    returns views into ``flat`` (sharing its storage)."""
+    """``ravel_pytree`` for nested dicts and lists: (flat vector, unravel).
+    Leaves go in ``jax.tree.leaves`` order, each flattened row-major.
+    ``unravel(flat)`` returns views into ``flat`` (sharing its storage)."""
     leaves = [torch.as_tensor(np.asarray(x) if not torch.is_tensor(x) else x)
-              for x in _leaves(tree)]
+              for x in tree_leaves(tree)]
     if device is None:
         device = leaves[0].device if leaves else torch.device("cpu")
     flat = (torch.cat([x.reshape(-1).to(device) for x in leaves])
@@ -52,8 +49,7 @@ def ravel(tree: PyTree, device: Optional[torch.device] = None):
     shapes = [tuple(x.shape) for x in leaves]
 
     def unravel(vec: torch.Tensor) -> PyTree:
-        it = iter(_split(vec, shapes))
-        return _rebuild(tree, it)
+        return tree_rebuild(tree, iter(_split(vec, shapes)))
 
     return flat, unravel
 
@@ -67,23 +63,14 @@ def _split(vec, shapes):
     return out
 
 
-def _rebuild(template, it):
-    if isinstance(template, dict):
-        return {k: _rebuild(template[k], it) for k in sorted(template)}
-    return next(it)
-
-
 def cast_floating(tree: PyTree, dtype: Optional[torch.dtype]) -> PyTree:
     """Cast every floating tensor of ``tree`` to ``dtype`` (integers and
     bools pass through); ``None`` is the identity. The shared
     mixed-precision downcast of ``PSTrainStep``."""
     if dtype is None:
         return tree
-    if isinstance(tree, dict):
-        return {k: cast_floating(v, dtype) for k, v in tree.items()}
-    if torch.is_tensor(tree) and tree.is_floating_point():
-        return tree.to(dtype)
-    return tree
+    return tree_map(lambda x: x.to(dtype) if torch.is_tensor(x)
+                    and x.is_floating_point() else x, tree)
 
 
 class DenseTable:
@@ -96,10 +83,14 @@ class DenseTable:
         name: str = "dense0",
         updater: str = "sgd",
         lr: LearningRate = 0.1,
+        grad_reduce: str = "mean",
         updater_kwargs: Optional[dict] = None,
         device: DeviceLike = None,
     ):
+        if grad_reduce not in ("mean", "sum"):
+            raise ValueError("grad_reduce must be 'mean' or 'sum'")
         self.name = name
+        self.grad_reduce = grad_reduce
         self.device = resolve_device(device)
         self.num_shards = WORLD_SIZE
 
@@ -128,12 +119,12 @@ class DenseTable:
         return out
 
     def unravel(self, flat: torch.Tensor) -> PyTree:
-        """The template's dict of views into ``flat[:num_keys]``."""
+        """The template's tree of views into ``flat[:num_keys]``."""
         return self._unravel(flat[: self.num_keys])
 
     # ------------------------------------------------------------------ pull
     def pull(self) -> PyTree:
-        """The full parameter dict."""
+        """The full parameter tree."""
         return self.unravel(self.params)
 
     def pull_keys(self, keys) -> torch.Tensor:
@@ -142,7 +133,7 @@ class DenseTable:
 
     # ------------------------------------------------------------------ push
     def push(self, grads: PyTree) -> None:
-        """Apply a full-dict gradient through the server-side updater."""
+        """Apply a full-tree gradient through the server-side updater."""
         gflat, _ = ravel(grads, self.device)
         self._apply(self._pad(gflat))
 
@@ -157,12 +148,18 @@ class DenseTable:
         mask = torch.zeros_like(self.params).index_fill_(0, keys, 1.0)
         self._apply(flat, mask)
 
+    def _clip(self, g: torch.Tensor) -> torch.Tensor:
+        """Global-norm clip over the whole gradient (a no-op without
+        ``clip_norm``)."""
+        if not self._clip_norm:
+            return g
+        sumsq = torch.sum(g * g)
+        return g * torch.clamp(self._clip_norm * torch.rsqrt(
+            torch.clamp(sumsq, min=1e-16)), max=1.0)
+
     def _apply(self, g: torch.Tensor,
                mask: Optional[torch.Tensor] = None) -> None:
-        if self._clip_norm:
-            sumsq = torch.sum(g * g)
-            g = g * torch.clamp(self._clip_norm * torch.rsqrt(
-                torch.clamp(sumsq, min=1e-16)), max=1.0)
+        g = self._clip(g)
         updates, new_opt = self.tx.update(g, self.opt_state, self.params)
         if mask is not None:
             updates = updates * mask
@@ -171,6 +168,94 @@ class DenseTable:
                        for new, old in zip(new_opt, self.opt_state)]
         self.params = self.params + updates
         self.opt_state = new_opt
+
+    # ------------------------------------------------------------- fused step
+    def make_step(
+        self,
+        grad_fn: Callable[[PyTree, Any], tuple[torch.Tensor, PyTree]],
+        *,
+        accum: int = 1,
+        compute_dtype: Optional[torch.dtype] = None,
+        comm: str = "float32",
+    ):
+        """Pull, gradient, push and update in one call — the port of the
+        JAX package's ``DenseTable.make_step``.
+
+        ``grad_fn(params_tree, batch) -> (loss, grads_tree)``; the returned
+        ``step(params, opt_state, batch) -> (params, opt_state, loss)``
+        reads the padded flat params it is handed and returns new ones
+        (``step_inplace`` runs it against the table's own state).
+
+        ``compute_dtype`` (e.g. ``torch.bfloat16``) casts the params and the
+        batch's floating leaves down before ``grad_fn`` and the gradients
+        back up to float32 before the push: the master weights and the
+        update stay float32. ``accum`` > 1 splits the batch's leading dim
+        into that many microbatches and folds their losses and flat
+        gradients in float32 (averaged under ``grad_reduce="mean"``,
+        summed under ``"sum"``) before one update.
+
+        One device: the pull is a read and the push the updater on the one
+        shard, divided by the world size of 1 under ``"mean"``. ``comm``
+        other than ``"float32"`` (the quantized collectives) is not ported
+        (ROADMAP.md queue 1 item 10). The JAX function's ``batch_spec`` and
+        ``jit`` have no counterpart: the batch lies whole on the one device
+        and PyTorch runs eagerly.
+        """
+        if comm != "float32":
+            raise NotImplementedError(
+                f"comm={comm!r} is not ported yet (ROADMAP.md queue 1 item "
+                "10: the quantized collectives); use comm='float32'")
+        if accum < 1:
+            raise ValueError(f"accum must be >= 1, got {accum}")
+        n, padded, world = self.num_keys, self.padded, self.num_shards
+        unravel, tx, reduce = self._unravel, self.tx, self.grad_reduce
+
+        if compute_dtype is not None:
+            user_grad_fn = grad_fn
+
+            def grad_fn(params, batch):  # noqa: F811 - deliberate wrap
+                loss, grads = user_grad_fn(cast_floating(params, compute_dtype),
+                                           cast_floating(batch, compute_dtype))
+                return loss.float(), cast_floating(grads, torch.float32)
+
+        def grads_flat(params, batch):
+            if accum == 1:
+                loss, grads = grad_fn(params, batch)
+                return loss, ravel(grads)[0]
+            for leaf in tree_leaves(batch):
+                if leaf.shape[0] % accum:
+                    raise ValueError(f"batch dim {leaf.shape[0]} must "
+                                     f"divide by accum={accum}")
+            loss_sum = torch.zeros((), dtype=torch.float32,
+                                   device=self.device)
+            gsum = torch.zeros(n, dtype=torch.float32, device=self.device)
+            for i in range(accum):
+                micro = tree_map(lambda x: x.reshape(
+                    (accum, x.shape[0] // accum) + tuple(x.shape[1:]))[i],
+                    batch)
+                loss, grads = grad_fn(params, micro)
+                loss_sum = loss_sum + loss
+                gsum = gsum + ravel(grads)[0]
+            if reduce == "sum":
+                return loss_sum, gsum
+            return loss_sum / accum, gsum / accum
+
+        def step(params, opt_state, batch):
+            loss, gflat = grads_flat(unravel(params[:n]), batch)   # pull
+            g = torch.zeros(padded, dtype=gflat.dtype, device=gflat.device)
+            g[:n] = gflat                                           # push
+            if reduce == "mean":
+                g = g / world
+            updates, opt_state = tx.update(self._clip(g), opt_state, params)
+            return params + updates, opt_state, loss
+
+        return step
+
+    def step_inplace(self, step, batch) -> torch.Tensor:
+        """Run a fused step against the table's own state."""
+        self.params, self.opt_state, loss = step(self.params, self.opt_state,
+                                                 batch)
+        return loss
 
     # ------------------------------------------------------------- state I/O
     def state_dict(self) -> dict:

@@ -1,0 +1,294 @@
+"""The port's flash attention (K2, K3, K4 and their plain versions) against
+the JAX package's.
+
+The JAX side runs its Pallas kernels in interpret mode
+(``_flash_with_lse(..., interpret=True)``), as
+``tests/test_flash_attention.py`` does; the port's CPU tensors run the
+plain versions. Both round ``p`` and ``ds`` to the input type at the same
+points and tile the forward's online softmax alike (the port's plain
+forward takes the JAX call's ``block_k``), so:
+
+- float32: outputs, lse and gradients to 1e-5 absolute (O(1) values; the
+  two sum in different orders);
+- bfloat16: outputs and gradients to 2^-7 x max(1, max |value|), one
+  bf16 rounding step at the largest value: the shared rounding points
+  leave only f32 summation order, which can flip a rounding of p, ds or
+  the output by one step; lse to 1e-5 (it is float32 either way).
+
+The CUDA kernels are held against the plain versions on the card by the
+``cuda`` tests here and by ``chip_smoke.py``.
+"""
+
+from __future__ import annotations
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from minips_tpu.ops import flash_attention as jfa
+from minips_tpu.parallel import ring_attention as jring
+from minips_tpu_torch.ops import _build
+from minips_tpu_torch.ops import flash_attention as tfa
+from minips_tpu_torch.parallel import ring_attention as tring
+
+F32_ATOL = 1e-5
+BF16_REL = 2.0 ** -7
+
+
+def _close(got, want, dtype):
+    got = np.asarray(got, np.float64)
+    want = np.asarray(want, np.float64)
+    assert got.shape == want.shape
+    if dtype == "bfloat16":
+        assert np.abs(got - want).max() <= BF16_REL * max(
+            1.0, np.abs(want).max())
+    else:
+        np.testing.assert_allclose(got, want, rtol=0, atol=F32_ATOL)
+
+
+def _inputs(rng, B, Tq, Tk, H, Hk, D):
+    q = rng.normal(size=(B, Tq, H, D)).astype(np.float32)
+    k = rng.normal(size=(B, Tk, Hk, D)).astype(np.float32)
+    v = rng.normal(size=(B, Tk, Hk, D)).astype(np.float32)
+    return q, k, v
+
+
+def _j(x, dtype):
+    return jnp.asarray(x).astype(dtype)
+
+
+def _t(x, dtype, grad=False):
+    t = torch.from_numpy(np.ascontiguousarray(x)).to(getattr(torch, dtype))
+    return t.requires_grad_(True) if grad else t
+
+
+def _f32(x):
+    return np.asarray(jnp.asarray(x).astype(jnp.float32))
+
+
+# (B, T, H, Hk, D, q_off, k_off, block)
+CASES = [
+    (2, 64, 2, 2, 16, 0, 0, 32),     # MHA
+    (1, 64, 4, 1, 16, 0, 0, 32),     # MQA, g = 4
+    (1, 64, 4, 2, 8, 16, 0, 16),     # GQA g = 2, offsets as a ring step
+    (1, 32, 2, 2, 32, 32, 32, 32),   # a diagonal ring step
+]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("case", CASES)
+def test_forward_matches_pallas_interpret(case, causal, dtype):
+    B, T, H, Hk, D, q_off, k_off, blk = case
+    q, k, v = _inputs(np.random.default_rng(1), B, T, T, H, Hk, D)
+    out, lse = jfa._flash_with_lse(
+        _j(q, dtype), _j(k, dtype), _j(v, dtype), jnp.int32(q_off),
+        jnp.int32(k_off), causal, D ** -0.5, blk, blk, True)
+    got, glse = tfa.flash_forward(_t(q, dtype), _t(k, dtype), _t(v, dtype),
+                                  q_off, k_off, causal=causal,
+                                  scale=D ** -0.5, block_k=blk)
+    assert got.dtype == getattr(torch, dtype) and glse.dtype == torch.float32
+    _close(got.float().numpy(), _f32(out), dtype)
+    np.testing.assert_allclose(glse.numpy(), np.asarray(lse), rtol=0,
+                               atol=F32_ATOL)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("case", CASES)
+def test_gradients_with_lse_cotangent_match_jax_vjp(case, causal, dtype):
+    """A loss that uses both outputs: the lse cotangent enters dvec."""
+    B, T, H, Hk, D, q_off, k_off, blk = case
+    rng = np.random.default_rng(2)
+    q, k, v = _inputs(rng, B, T, T, H, Hk, D)
+    w = rng.normal(size=(B, T, H, D)).astype(np.float32)
+
+    def jloss(q, k, v):
+        out, lse = jfa._flash_with_lse(q, k, v, jnp.int32(q_off),
+                                       jnp.int32(k_off), causal, D ** -0.5,
+                                       blk, blk, True)
+        return jnp.sum(out.astype(jnp.float32) * w) + jnp.sum(jnp.sin(lse))
+
+    want = jax.grad(jloss, argnums=(0, 1, 2))(
+        _j(q, dtype), _j(k, dtype), _j(v, dtype))
+    tq, tk, tv = (_t(x, dtype, grad=True) for x in (q, k, v))
+    out, lse = tfa.flash_with_lse(tq, tk, tv, q_off, k_off, causal=causal,
+                                  block_k=blk)
+    (torch.sum(out.float() * torch.from_numpy(w))
+     + torch.sum(torch.sin(lse))).backward()
+    for got, ref in zip((tq, tk, tv), want):
+        assert got.grad.shape == got.shape  # dk, dv at the kv head count
+        _close(got.grad.float().numpy(), _f32(ref), dtype)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_backward_plain_versions_match_jax_backward(causal):
+    """K3's and K4's plain versions against ``_flash_backward`` directly,
+    with a dvec that is not rowsum(dO·O)."""
+    B, T, H, Hk, D = 1, 64, 4, 2, 16
+    rng = np.random.default_rng(3)
+    q, k, v = _inputs(rng, B, T, T, H, Hk, D)
+    do = rng.normal(size=(B, T, H, D)).astype(np.float32)
+    _, lse = jfa._flash_forward(*(jnp.asarray(x) for x in (q, k, v)),
+                                jnp.int32(16), jnp.int32(0), causal,
+                                D ** -0.5, 32, 32, True)
+    dvec = rng.normal(size=(B, H, T, 1)).astype(np.float32)
+    dq, dk, dv = jfa._flash_backward(
+        *(jnp.asarray(x) for x in (q, k, v)), jnp.int32(16), jnp.int32(0),
+        jnp.asarray(do), lse, jnp.asarray(dvec), causal, D ** -0.5, 32, 32,
+        True)
+    args = [torch.from_numpy(x) for x in (q, k, v, do)] + [
+        torch.from_numpy(np.asarray(lse)), torch.from_numpy(dvec)]
+    got_dq = tfa.flash_bwd_dq(*args, 16, 0, causal=causal, scale=D ** -0.5)
+    got_dk, got_dv = tfa.flash_bwd_dkv(*args, 16, 0, causal=causal,
+                                       scale=D ** -0.5)
+    for got, want in ((got_dq, dq), (got_dk, dk), (got_dv, dv)):
+        _close(got.numpy(), np.asarray(want), "float32")
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("hk", [1, 2, 4])
+def test_flash_attention_matches_reference_attention(hk, causal, dtype):
+    """``flash_attention`` (any T, the default block sizes) against the
+    port's and the JAX package's plain oracle."""
+    q, k, v = _inputs(np.random.default_rng(4), 2, 48, 48, 4, hk, 16)
+    got = tfa.flash_attention(_t(q, dtype), _t(k, dtype), _t(v, dtype),
+                              causal=causal)
+    ref = tring.reference_attention(_t(q, dtype), _t(k, dtype),
+                                    _t(v, dtype), causal=causal)
+    want = jring.reference_attention(_j(q, dtype), _j(k, dtype),
+                                     _j(v, dtype), causal=causal)
+    _close(ref.float().numpy(), _f32(want), dtype)
+    # flash and the oracle round p at different places under bf16
+    tol = 1e-5 if dtype == "float32" else 2e-2
+    np.testing.assert_allclose(got.float().numpy(), ref.float().numpy(),
+                               rtol=0, atol=tol)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("tk,block_k,q_off,k_off",
+                         [(64, 16, 0, 0), (48, 32, 0, 0), (40, 16, 24, 8)])
+def test_blockwise_matches_jax_blockwise(causal, tk, block_k, q_off, k_off):
+    """Ragged K tails, offsets and ``return_lse`` (float32, 1e-5)."""
+    q, k, v = _inputs(np.random.default_rng(5), 2, 32, tk, 4, 2, 16)
+    out, lse = jfa.blockwise_attention(
+        *(jnp.asarray(x) for x in (q, k, v)), causal=causal,
+        block_k=block_k, q_off=q_off, k_off=k_off, return_lse=True)
+    got, glse = tfa.blockwise_attention(
+        *(torch.from_numpy(x) for x in (q, k, v)), causal=causal,
+        block_k=block_k, q_off=q_off, k_off=k_off, return_lse=True)
+    _close(got.numpy(), np.asarray(out), "float32")
+    _close(glse.numpy(), np.asarray(lse), "float32")
+
+
+def test_ragged_sequences_plain_versions_agree_with_blockwise():
+    """Tq, Tk not multiples of the kernels' 64-row tile: the plain versions
+    (which the kernels are held to) against the blockwise scan and its
+    autograd, float32, 1e-5."""
+    q, k, v = _inputs(np.random.default_rng(6), 1, 100, 100, 4, 2, 24)
+    tq, tk, tv = (torch.from_numpy(x).requires_grad_(True) for x in (q, k, v))
+    out = tfa.flash_attention(tq, tk, tv, causal=True)
+    out.square().sum().backward()
+    grads = [x.grad.clone() for x in (tq, tk, tv)]
+    for x in (tq, tk, tv):
+        x.grad = None
+    ref = tfa.blockwise_attention(tq, tk, tv, causal=True, block_k=64)
+    ref.square().sum().backward()
+    _close(out.detach().numpy(), ref.detach().numpy(), "float32")
+    for got, x in zip(grads, (tq, tk, tv)):
+        _close(got.numpy(), x.grad.numpy(), "float32")
+
+
+def test_gqa_helpers_and_kernel_gate():
+    assert tfa.gqa_group_size(8, 2) == jfa.gqa_group_size(8, 2) == 4
+    with pytest.raises(ValueError, match="divide"):
+        tfa.gqa_group_size(4, 3)
+    q = torch.zeros(1, 5, 4, 8)
+    k = torch.arange(2 * 5 * 8, dtype=torch.float32).reshape(1, 5, 2, 8)
+    ek, _ = tfa._expand_kv(q, k, k)
+    want, _ = jfa._expand_kv(jnp.zeros((1, 5, 4, 8)), jnp.asarray(k.numpy()),
+                             jnp.asarray(k.numpy()))
+    np.testing.assert_array_equal(ek.numpy(), np.asarray(want))
+    # the kernels' gate: any T, D a multiple of 8 up to 128
+    assert tfa.kernel_supported((2, 100, 4, 64), (2, 37, 2, 64))
+    assert tfa.kernel_supported((1, 1, 1, 128), (1, 1, 1, 128))
+    assert not tfa.kernel_supported((1, 64, 4, 12), (1, 64, 4, 12))
+    assert not tfa.kernel_supported((1, 64, 4, 256), (1, 64, 4, 256))
+    assert not tfa.kernel_supported((1, 64, 4, 64), (1, 64, 3, 64))
+
+
+def test_cpu_tensors_do_not_count_launches_and_other_devices_raise():
+    q = torch.zeros(1, 8, 2, 8)
+    before = (tfa.flash_forward.launches, tfa.flash_bwd_dq.launches,
+              tfa.flash_bwd_dkv.launches)
+    x = q.clone().requires_grad_(True)
+    tfa.flash_attention(x, x, x, causal=True).sum().backward()
+    assert (tfa.flash_forward.launches, tfa.flash_bwd_dq.launches,
+            tfa.flash_bwd_dkv.launches) == before
+    meta = q.to("meta")
+    with pytest.raises(ValueError, match="no kernel"):
+        tfa.flash_forward(meta, meta, meta, causal=True, scale=1.0)
+    with pytest.raises(ValueError, match="different devices"):
+        tfa.flash_forward(q, q, meta, causal=True, scale=1.0)
+    with pytest.raises(ValueError):
+        tfa.flash_forward(q, q[:, :, :, :4], q, causal=True, scale=1.0)
+    assert _build.library_path("flash_attn").name.startswith(
+        "libflash_attn-")
+
+
+# ------------------------------------------------------------- on the card
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: K2-K4 are CUDA only")
+    return torch.device("cuda")
+
+
+def _norm_err(got, want):
+    want = want.float()
+    return float((got.float() - want).abs().max()) / max(
+        1.0, float(want.abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("shape", [
+    (2, 128, 128, 4, 4, 64, 0, 0),
+    (1, 100, 100, 8, 2, 40, 0, 0),      # ragged T, GQA g = 4, D = 40
+    (1, 64, 192, 4, 1, 128, 128, 0),    # offsets, Tq != Tk, MQA, D = 128
+])
+def test_kernels_match_plain_versions_on_card(cuda_device, shape, causal,
+                                              dtype):
+    """K2, K3, K4 against their plain versions: float32 to 1e-4 and
+    bfloat16 to 2^-7 of max(1, max |value|) (the rounding points are
+    shared; only the f32 summation order differs)."""
+    B, Tq, Tk, H, Hk, D, q_off, k_off = shape
+    tol = 1e-4 if dtype == torch.float32 else 2.0 ** -7
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+
+    def rnd(*s):
+        return torch.randn(s, generator=gen, device=cuda_device).to(dtype)
+
+    q, k, v, do = rnd(B, Tq, H, D), rnd(B, Tk, Hk, D), rnd(B, Tk, Hk, D), \
+        rnd(B, Tq, H, D)
+    args = dict(causal=causal, scale=D ** -0.5)
+    before = tfa.flash_forward.launches
+    out, lse = tfa.flash_forward(q, k, v, q_off, k_off, **args)
+    torch.cuda.synchronize()
+    assert tfa.flash_forward.launches == before + 1
+    ref, rlse = tfa.flash_forward_reference(q, k, v, q_off, k_off, **args)
+    assert _norm_err(out, ref) <= tol
+    assert float((lse - rlse).abs().max()) <= 1e-4
+    dvec = (do.float() * ref.float()).sum(-1).transpose(1, 2)[..., None]
+    dq = tfa.flash_bwd_dq(q, k, v, do, rlse, dvec, q_off, k_off, **args)
+    dk, dv = tfa.flash_bwd_dkv(q, k, v, do, rlse, dvec, q_off, k_off, **args)
+    torch.cuda.synchronize()
+    assert _norm_err(dq, tfa.flash_bwd_dq_reference(
+        q, k, v, do, rlse, dvec, q_off, k_off, **args)) <= tol
+    rdk, rdv = tfa.flash_bwd_dkv_reference(q, k, v, do, rlse, dvec, q_off,
+                                           k_off, **args)
+    assert _norm_err(dk, rdk) <= tol and _norm_err(dv, rdv) <= tol

@@ -39,10 +39,28 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "bad = sorted(k for k in sys.modules\n"
         "             if k.split('.')[0] in ('jax', 'jaxlib', 'optax',\n"
         "                                    'minips_tpu'))\n"
-        "print(len(names), bad)\n")
+        "need = {'minips_tpu_torch.ops.flash_attention',\n"
+        "        'minips_tpu_torch.models.transformer',\n"
+        "        'minips_tpu_torch.apps.lm',\n"
+        "        'minips_tpu_torch.parallel.ring_attention'}\n"
+        "print(len(names), sorted(need - set(names)), bad)\n")
     assert r.returncode == 0, r.stderr
-    count, bad = r.stdout.split(" ", 1)
-    assert int(count) >= 20 and bad.strip() == "[]", r.stdout
+    count, rest = r.stdout.split(" ", 1)
+    assert int(count) >= 25 and rest.strip() == "[] []", r.stdout
+
+
+def test_importing_the_build_module_runs_nothing():
+    # no nvcc, no build directory, no library load at import: the CPU tests
+    # import every module on a machine without the CUDA toolkit
+    r = _run(
+        "import os, subprocess\n"
+        "calls = []\n"
+        "subprocess.Popen = lambda *a, **k: calls.append(a)\n"
+        "from minips_tpu_torch.ops import _build, flash_attention, gather\n"
+        "print(calls, _build.load.cache_info().currsize,\n"
+        "      flash_attention._lib.cache_info().currsize)\n")
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.strip() == "[] 0 0"
 
 
 @pytest.mark.parametrize("entry", [
@@ -53,6 +71,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     "from minips_tpu_torch.tables.dense import DenseTable; "
     "import torch; DenseTable({'w': torch.zeros(2)})",
     "from minips_tpu_torch.apps.lrmlp import build_lrmlp; build_lrmlp(8)",
+    "from minips_tpu_torch.apps.lm import build_lm; build_lm(2, 8, dim=64, "
+    "depth=1, vocab=16)",
 ])
 def test_entry_points_default_to_cuda_and_raise_without_it(entry):
     _no_cuda()

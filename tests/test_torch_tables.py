@@ -25,6 +25,7 @@ from minips_tpu_torch import interop
 from minips_tpu_torch.tables import dense as tdense
 from minips_tpu_torch.tables import sparse as tsparse
 from minips_tpu_torch.tables import updaters as tupd
+from minips_tpu_torch.utils.tree import tree_leaves
 
 ATOL = 1e-6
 
@@ -176,6 +177,60 @@ def test_dense_clip_norm_on_push(mesh1):
     jt.push({"w": jnp.asarray(g)})
     tt.push({"w": torch.from_numpy(g)})
     _close(tt.params.numpy(), jt.params)
+
+
+def _lm_template():
+    """The LM's parameter tree at a small size: dicts holding a list of
+    block dicts."""
+    from minips_tpu.models import transformer as jtfm
+
+    return jtfm.init(jax.random.PRNGKey(2), vocab=16, dim=8, heads=2,
+                     depth=3, max_len=4)
+
+
+def test_ravel_walks_lists_as_ravel_pytree_does():
+    tmpl = _lm_template()
+    want, junravel = ravel_pytree(tmpl)
+    ttmpl = interop.tree_from_numpy(jax.tree.map(np.asarray, tmpl), "cpu")
+    flat, unravel = tdense.ravel(ttmpl)
+    assert flat.shape == want.shape
+    np.testing.assert_array_equal(flat.numpy(), np.asarray(want))  # bitwise
+    back = unravel(flat)
+    assert isinstance(back["blocks"], list) and len(back["blocks"]) == 3
+    for a, b in zip(jax.tree.leaves(junravel(want)), tree_leaves(back)):
+        np.testing.assert_array_equal(b.numpy(), np.asarray(a))
+    # unravel gives views: a write through the tree lands in the vector
+    back["blocks"][1]["proj"][0, 0] = 7.0
+    assert 7.0 in flat.numpy()
+
+
+def test_dense_push_adam_on_the_lm_tree(mesh1):
+    rng = np.random.default_rng(11)
+    tmpl = _lm_template()
+    jt = jdense.DenseTable(tmpl, mesh1, updater="adam", lr=0.01)
+    tt = tdense.DenseTable(
+        interop.tree_from_numpy(jax.tree.map(np.asarray, tmpl), "cpu"),
+        updater="adam", lr=0.01, device="cpu")
+    np.testing.assert_array_equal(tt.params.numpy(), np.asarray(jt.params))
+    for _ in range(2):
+        g = jax.tree.map(lambda x: rng.normal(size=np.shape(x)).astype(
+            np.float32), tmpl)
+        jt.push(jax.tree.map(jnp.asarray, g))
+        tt.push(interop.tree_from_numpy(g, "cpu"))
+    params, leaves = interop.dense_to_numpy(tt)
+    _close(params, jt.params)
+    for got, want in zip(leaves, jax.tree.leaves(jt.opt_state)):
+        _close(got, want)
+    for a, b in zip(jax.tree.leaves(jt.pull()), tree_leaves(tt.pull())):
+        _close(b.numpy(), a)
+    # the LM table's flat params and Adam state cross both ways unchanged
+    leaves = [np.asarray(x) for x in jax.tree.leaves(jt.opt_state)]
+    interop.load_dense(tt, np.asarray(jt.params), leaves)
+    params, back = interop.dense_to_numpy(tt)
+    np.testing.assert_array_equal(params, np.asarray(jt.params))
+    for got, want in zip(back, leaves):
+        assert got.dtype == want.dtype
+        np.testing.assert_array_equal(got, want)
 
 
 # --------------------------------------------------------------- updaters
