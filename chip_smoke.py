@@ -16,7 +16,9 @@ Adam, flash attention, head chunks of 128). Phases, each of which raises
 on failure:
 
 1. device: requires CUDA; prints the card's name and power limit;
-2. build: compiles every kernel, all sources at once, and times it;
+2. build: compiles every kernel, all sources at once, and times it; then
+   reads the built flash library's SASS (``cuobjdump``) and requires
+   tensor-core instructions (``HGMMA``) in the bf16 K2 and K3 kernels;
 3. kernels: the row gather against its plain PyTorch version on the card
    (bit-exact);
 4. hash: the key hash on the card, bit-identical to its numpy twin;
@@ -25,15 +27,17 @@ on failure:
    from the same weights, and the step time on the card;
 6. pull: ``SparseTable.pull`` through the kernel at D = 8 and D = 128;
 7. flash kernels: K2, K3 and K4 against their plain versions (f32 and
-   bf16, causal and not, GQA, global offsets, ragged T, the full-width
-   shape), the gradients through the autograd op with a nonzero lse
-   cotangent;
+   bf16, causal and not, GQA, global offsets, ragged T, Tq not a multiple
+   of the bf16 kernels' 128-row Q tile, the full-width shape), the
+   gradients through the autograd op with a nonzero lse cotangent;
 8. LM path: 10 steps at full width, with finite and falling loss, each
    flash kernel launched once per block per step, step time, tokens/s and
    the profiler's idle share; the first 3 steps of a small LM on the card
    and on the CPU port from the same weights;
 9. timings: every kernel's time at its main path's shapes beside its plain
-   version's, one PyTorch call's and the least time the card could take.
+   version's, one PyTorch call's and the least time the card could take,
+   with the kernel's design (``wgmma`` or ``simt``) and, for the redesigned
+   K2 and K3, their first versions' times.
 
 The last two lines are a JSON object with every kernel's numbers and then
 ``{"ok": true, "device": {...}}``. Without CUDA, or without the package
@@ -45,6 +49,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -82,6 +87,17 @@ FLASH_TOL = {"float32": 1e-4, "bfloat16": 2.0 ** -7}
 LSE_TOL = 1e-4  # lse is float32 on both sides
 # peak rates of an H100 SXM (NVIDIA data sheet): dense bf16 tensor cores
 BF16_FLOPS = 989e12
+# K2's and K3's times in their first (SIMT, f32 FMA) versions at the LM's
+# shape, measured by this script on an NVIDIA H100 80GB HBM3 at 700 W; the
+# kernels line carries them beside the wgmma kernels' times
+EARLIER_MS = {"flash_forward": 4.1146, "flash_bwd_dq": 5.7931}
+DESIGN = {"gather_rows": "simt", "flash_forward": "wgmma",
+          "flash_bwd_dq": "wgmma", "flash_bwd_dkv": "simt"}
+# the bf16 K2 and K3 kernels, each of which must hold HGMMA instructions
+WGMMA_KERNELS = ("flash_fwd_wgmma_kernel<bf16,64>",
+                 "flash_fwd_wgmma_kernel<bf16,128>",
+                 "flash_bwd_dq_wgmma_kernel<bf16,64>",
+                 "flash_bwd_dq_wgmma_kernel<bf16,128>")
 # Device memory rate by card, bytes/s (NVIDIA data sheets); the H100 SXM's
 # 3.35 TB/s unless the name says otherwise.
 MEM_BW = (("H100 PCIe", 2.0e12), ("H100 NVL", 3.9e12), ("H200", 4.8e12),
@@ -99,6 +115,30 @@ def gpu_line() -> str:
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip().splitlines()
     return out[0]
+
+
+def tensor_core_check(build) -> dict:
+    """HGMMA (wgmma) instructions per kernel of the built flash library,
+    read from its SASS with ``cuobjdump``. Raises unless every bf16 K2 and
+    K3 kernel holds some."""
+    cuobjdump = os.path.join(os.path.dirname(build._nvcc()), "cuobjdump")
+    sass = subprocess.run(
+        [cuobjdump, "--dump-sass", str(build.library_path("flash_attn"))],
+        capture_output=True, text=True, timeout=300, check=True).stdout
+    counts = {}
+    for chunk in sass.split("Function : ")[1:]:
+        mangled = chunk.split("\n", 1)[0].strip()
+        kernel = re.search(r"\d+(flash_\w+?_kernel)I", mangled)
+        dmax = re.search(r"Li(\d+)E", mangled)
+        if kernel and dmax:
+            dtype = "f32" if "IfLi" in mangled else "bf16"
+            name = f"{kernel.group(1)}<{dtype},{dmax.group(1)}>"
+            counts[name] = chunk.count("HGMMA")
+    for name in WGMMA_KERNELS:
+        check(counts.get(name, 0) > 0,
+              f"no HGMMA in {name}: the bf16 kernel does not use the tensor "
+              f"cores (SASS counts {counts})")
+    return counts
 
 
 def time_ms(torch, fn) -> float:
@@ -121,10 +161,11 @@ def time_ms(torch, fn) -> float:
     return statistics.median(s.elapsed_time(e) for s, e in ev)
 
 
-def flash_errors(torch, tfa, case, dtype, causal, seed) -> dict:
+def flash_errors(torch, tfa, case, dtype, causal, seed) -> tuple:
     """K2 forward and K3/K4 (through the autograd op, with nonzero output
     and lse cotangents) on one case, each against its plain version on the
-    same inputs. Raises on a mismatch; returns each kernel's max |err|."""
+    same inputs. Raises on a mismatch; returns each kernel's max |err| and
+    that error over max(1, max |plain|), the quantity the tolerance bounds."""
     B, Tq, Tk, H, Hk, D, q_off, k_off = case
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(seed)
@@ -157,11 +198,11 @@ def flash_errors(torch, tfa, case, dtype, causal, seed) -> dict:
     rdk, rdv = tfa.flash_bwd_dkv_reference(q, k, v, g_out, lse, dvec, q_off,
                                            k_off, **kw)
     tol = FLASH_TOL[str(dtype).split(".")[-1]]
-    errs = {}
+    errs, rels = {}, {}
     for kernel, pairs in (("flash_forward", ((out, ref),)),
                           ("flash_bwd_dq", ((dq, rdq),)),
                           ("flash_bwd_dkv", ((dk, rdk), (dv, rdv)))):
-        worst = 0.0
+        worst = worst_rel = 0.0
         for got, want in pairs:
             check(got.shape == want.shape and got.dtype == want.dtype,
                   f"{kernel} shape/dtype {tuple(got.shape)} {got.dtype}")
@@ -172,11 +213,12 @@ def flash_errors(torch, tfa, case, dtype, causal, seed) -> dict:
                   f"{dtype} causal={causal}: max err {err} > {tol} x "
                   f"{scale_ref}")
             worst = max(worst, err)
-        errs[kernel] = worst
+            worst_rel = max(worst_rel, err / scale_ref)
+        errs[kernel], rels[kernel] = worst, worst_rel
     lerr = float((lse - rlse).abs().max())
     check(lerr <= LSE_TOL, f"flash_forward lse differs by {lerr}: case "
           f"{case} {dtype} causal={causal}")
-    return errs
+    return errs, rels
 
 
 def attention_work(B, Tq, Tk, H, Hk, D, q_off, k_off, causal, item):
@@ -258,6 +300,9 @@ def main() -> int:
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  ptxas {name}: {line.strip()}")
+    hgmma = tensor_core_check(_build)
+    print("tensor cores: HGMMA instructions per flash kernel (SASS): "
+          + json.dumps(hgmma), flush=True)
 
     # ------------------------------------- 3. kernels against plain versions
     rng = np.random.default_rng(0)
@@ -401,30 +446,41 @@ def main() -> int:
 
     flash = ("flash_forward", "flash_bwd_dq", "flash_bwd_dkv")
     flash_err = dict.fromkeys(flash, 0.0)
+    flash_rel = dict.fromkeys(flash, 0.0)
+
+    def record(errs, rels):
+        for name in flash:
+            flash_err[name] = max(flash_err[name], errs[name])
+            flash_rel[name] = max(flash_rel[name], rels[name])
+
     flash_cases = [  # (B, Tq, Tk, H, Hk, D, q_off, k_off)
         (2, 128, 128, 4, 4, 64, 0, 0),       # MHA
         (1, 256, 256, 8, 2, 64, 0, 0),       # GQA, g = 4
         (1, 128, 256, 4, 4, 64, 128, 0),     # global offsets, Tq != Tk
         (1, 64, 192, 4, 1, 128, 128, 64),    # offsets, MQA, D = 128
         (1, 100, 100, 8, 2, 40, 0, 0),       # ragged T, D = 40
+        # Tq not a multiple of the bf16 K2/K3's 128-row Q tile: the second
+        # warpgroup's rows end inside their tile
+        (1, 192, 192, 8, 2, 64, 0, 0),       # GQA g = 4, D = 64
+        (1, 192, 192, 8, 2, 128, 0, 0),      # GQA g = 4, D = 128
+        (2, 200, 328, 4, 2, 64, 128, 0),     # ragged Tq and Tk, offsets
     ]
     n_cases = 0
     for dtype in (torch.float32, torch.bfloat16):
         for causal in (False, True):
             for case in flash_cases:
-                for name, err in flash_errors(torch, tfa, case, dtype, causal,
-                                              n_cases).items():
-                    flash_err[name] = max(flash_err[name], err)
+                record(*flash_errors(torch, tfa, case, dtype, causal,
+                                     n_cases))
                 n_cases += 1
     LM_B, LM_T, LM_DIM, LM_DEPTH = 16, 1024, 2048, 8
     full = (LM_B, LM_T, LM_T, LM_DIM // 64, LM_DIM // 64, 64, 0, 0)
-    for name, err in flash_errors(torch, tfa, full, torch.bfloat16, True,
-                                  n_cases).items():
-        flash_err[name] = max(flash_err[name], err)
+    record(*flash_errors(torch, tfa, full, torch.bfloat16, True, n_cases))
     print(f"flash kernels: {n_cases + 1} cases against the plain versions "
           "(f32 and bf16, causal and not, MHA/GQA g=4/MQA, offsets, ragged "
-          f"T=100, D 40/64/128, full width {full} bf16 causal), gradients "
-          f"with a nonzero lse cotangent; max |err| {flash_err}; tolerance "
+          "T=100/200/328, Tq=192 and 200 against the 128-row Q tile, D "
+          f"40/64/128, full width {full} bf16 causal), gradients "
+          f"with a nonzero lse cotangent; max |err| {flash_err}, over "
+          f"max(1, max |value|) {flash_rel}; tolerance "
           f"{FLASH_TOL} of max(1, max |value|), lse {LSE_TOL}", flush=True)
 
     # ------------------------------------------------------------ 8. LM path
@@ -526,6 +582,7 @@ def main() -> int:
         **{k: sum(s[k] for s in shapes)
            for k in ("plain_ms", "bound_ms", "library_ms")},
         "bound_by": "bytes",
+        "design": DESIGN["gather_rows"],
         "shapes": shapes,
     }]
 
@@ -585,6 +642,12 @@ def main() -> int:
             lib = sdpa_bwd_ms
         t_bytes = 1e3 * nbytes[name] / mem_bw
         t_ops = 1e3 * flops[name] / BF16_FLOPS
+        # SDPA's backward computes dQ, dK and dV in one call; K3's share of
+        # it is in proportion to the work, 6 D against K4's 8 D per pair
+        share = {"flash_forward": 1.0, "flash_bwd_dq": 6 / 14,
+                 "flash_bwd_dkv": 8 / 14}[name]
+        extra = {"earlier_ms": EARLIER_MS[name]} if name in EARLIER_MS \
+            else {}
         kernels.append({
             "name": name, "route": "cuda",
             "source": "minips_tpu_torch/csrc/flash_attn.cu",
@@ -594,6 +657,9 @@ def main() -> int:
             "ms": ms, "plain_ms": plain, "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": lib,
+            "design": DESIGN[name], **extra,
+            "tflops": flops[name] / ms / 1e9,
+            "library_share_ms": None if lib is None else lib * share,
             "library_call": ("scaled_dot_product_attention(is_causal=True) "
                              + ("forward" if name == "flash_forward" else
                                 "backward, dQ dK dV together")),

@@ -10,26 +10,61 @@
 //
 // The TPU kernels walk a sequential grid and carry the online-softmax state
 // (or the dQ / dK / dV sums) in VMEM from one grid step to the next. Here a
-// thread block owns one 64-row output tile and loops over the other side's
-// tiles itself: K2 and K3 one block per (Q tile, q head, batch) looping over
-// K tiles; K4 one block per (K tile, kv head, batch) looping over all
-// g * nQ (q head of its group, Q tile) pairs, as the TPU grid does. Every
-// output element is written once by one block: no atomics, and the sums run
-// in a fixed order.
+// thread block owns one output tile and loops over the other side's tiles
+// itself: K2 and K3 one block per (Q tile, q head, batch) looping over K
+// tiles; K4 one block per (K tile, kv head, batch) looping over all g * nQ
+// (q head of its group, Q tile) pairs, as the TPU grid does. Every output
+// element is written once by one block: no atomics, and the sums run in a
+// fixed order.
 //
-// What bounds it on this card: at the LM's shape (T = 1024, head dim 64)
-// attention does ~4 T^2 D flops per (batch, head) causal-halved against
-// ~4 T D bytes, far above the H100's ~295 flops per byte, so the tensor
-// cores would bound a fast kernel. This first version is the simple one:
-// 64 x 64 tiles in shared memory held as float32, 256 threads each owning a
-// 4 x 4 micro-tile of the score tile, dots as float32 FMAs (no TF32, no
-// tensor cores), so the FMA pipes and shared-memory loads bound it.
-// wgmma, TMA and warp specialisation are a later change.
+// What bounds K2 and K3 on this card: at the LM's shape (T = 1024, head dim
+// 64, causal) K2 does 4 D = 256 flops and K3 6 D = 384 flops per live
+// (query, key) pair against ~4 T D bytes per (batch, head), 68.8 and 103.2
+// GFLOP against 270 and 340 MB at B 16 x 32 heads: ~250 and ~300 flops per
+// byte, at the H100's ridge (989 TFLOP/s over 3.35 TB/s, ~295). The bf16
+// tensor cores bound them, and behind them the special-function unit: one
+// exp per pair costs as many SM cycles as the 4 D flops of K2's products.
+//
+// bf16 K2 and K3 (flash_fwd_wgmma_kernel, flash_bwd_dq_wgmma_kernel) are
+// built for that:
+//   - a block of 288 threads: two consumer warpgroups, each owning 64 rows
+//     of a 128-row Q tile, and one producer warp that starts every load;
+//   - the Q tile (and K3's dO tile) is loaded once by TMA and stays in shared
+//     memory; K and V tiles of 64 rows stream through a ring of stages (3 at
+//     D <= 64, 2 at D <= 128), each stage guarded by a "full" mbarrier (TMA
+//     byte count) and an "empty" one (one arrival per consumer warp), so the
+//     next tiles load while the current one is multiplied;
+//   - tiles are 128B-swizzled rows of 64 bf16 (one swizzle atom; D = 128 is
+//     two atoms side by side), the layout both TMA and wgmma's B128
+//     descriptors use; TMA zero-fills rows past T and columns past D, so a
+//     ragged T and a head dim below the atom (D = 40 runs as 64) need no code;
+//   - every product is wgmma m64n64k16, bf16 in and f32 accumulated in
+//     registers: S = Q K^T (K2, K3) and dP = dO V^T (K3) with both operands
+//     K-major in shared memory; O += P V (K2) and dQ += dS K (K3) with the
+//     rounded P or dS as the register A operand, straight from the score
+//     accumulator's fragment, and V or K read MN-major (transposed) from the
+//     same stage;
+//   - the online-softmax state (row max, partial row sums) lives in
+//     registers: a row's 64 scores sit in one quad of 4 threads, so a row
+//     max is two shuffles; exp is ex2.approx with log2(e) folded into the
+//     scale (about an ulp from expf, before p's rounding);
+//   - K tiles past the causal diagonal are never loaded, the element mask is
+//     applied only on tiles that cross the diagonal or the ragged K tail, and
+//     Q tiles launch longest first (grid z reversed), so short causal rows
+//     fill the tail of the grid.
+// f32 inputs keep the first SIMT kernels (flash_fwd_kernel,
+// flash_bwd_dq_kernel): wgmma on f32 would be TF32, three decimal digits,
+// which would miss the f32 tolerance of 1e-4 against the plain versions;
+// the main path never sends f32 here. K4 (flash_bwd_dkv_kernel) is the first
+// SIMT version in both types: 64 x 64 tiles in shared memory held as f32,
+// 256 threads each owning a 4 x 4 micro-tile, dots as f32 FMAs, so the FMA
+// pipes and shared-memory loads bound it.
 //
 // Numerics follow the TPU kernels so that the plain PyTorch versions in
 // ops/flash_attention.py can be held tight:
 //   - inputs are f32 or bf16; every dot sums bf16 x bf16 products (exact in
-//     f32) in f32, and the softmax state and every accumulator are f32;
+//     f32) in f32 (the tensor cores' f32 accumulation on the wgmma kernels),
+//     and the softmax state and every accumulator are f32;
 //   - p is rounded to the input type before P V, ds before dS K and dS^T Q,
 //     p^T before P^T dO; the outputs are rounded to the input type once;
 //   - the causal mask compares GLOBAL positions, q_off + i >= k_off + j, and
@@ -39,16 +74,22 @@
 //   - K tiles the causal mask kills entirely are skipped (_block_live).
 // Inputs are read in the [B, T, H, D] layout through the strides passed
 // in, so no transpose is materialised; q head h reads kv head h / g, so the
-// GQA repeat is never materialised. Any Tq and Tk; any D that is a multiple
-// of 8 up to 128.
+// GQA repeat is never materialised (the bf16 K2/K3 read them through TMA
+// maps built per launch from the same pointers and strides). Any Tq and Tk;
+// any D that is a multiple of 8 up to 128. The K tile is 64 rows everywhere,
+// the plain forward's online-softmax tile on the card (KERNEL_BLOCK), so
+// both rescale at the same key boundaries.
 //
 // Plain C interface (built with nvcc into a shared library, bound with
 // ctypes): each launcher launches on the given stream, allocates nothing,
 // synchronises nothing, and returns cudaGetLastError() after the launch.
 
+#include <cmath>
 #include <cstdint>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -476,6 +517,413 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// ----------------------------------------------- K2 and K3 on bf16: wgmma
+namespace wg {
+
+constexpr int kQRows = 128;    // Q tile: two consumer warpgroups of 64 rows
+constexpr int kKRows = kBlock;  // K / V tile rows (KERNEL_BLOCK in Python)
+constexpr int kConsumers = 256;
+constexpr int kThreads = kConsumers + 32;  // + the producer warp
+constexpr int kRow = 128;  // bytes of one swizzled row: 64 bf16
+constexpr float kLog2e = 1.4426950408889634f;
+
+template <int DMAX> struct Cfg {
+  static constexpr int kAtoms = DMAX / 64;  // 64-column swizzle atoms
+  static constexpr int kStages = DMAX == 64 ? 3 : 2;
+  static constexpr int kQBytes = kAtoms * kQRows * kRow;   // Q or dO tile
+  static constexpr int kKBytes = kAtoms * kKRows * kRow;   // K or V tile
+  static constexpr int kStageBytes = 2 * kKBytes;          // K then V
+  // + the barriers, + slack to align the base to 1024 bytes
+  static constexpr int smem(int q_tiles) {
+    return 1024 + q_tiles * kQBytes + kStages * kStageBytes +
+           8 * (1 + 2 * kStages);
+  }
+};
+
+__device__ __forceinline__ uint8_t* align1024(uint8_t* p) {
+  const uint32_t a = hopper::smem_u32(p);
+  return p + ((1024 - (a & 1023)) & 1023);
+}
+
+// K tiles that rows [r0, r0 + 64) see: they end at the causal diagonal
+// (dead()), and there are none for rows past Tq
+__device__ __forceinline__ int live_tiles(const Dims& p, int r0) {
+  if (r0 >= p.Tq) return 0;
+  const int nk = (p.Tk + kKRows - 1) / kKRows;
+  if (!p.causal) return nk;
+  const int last = p.q_off + min(r0 + 63, p.Tq - 1) - p.k_off;
+  return last < 0 ? 0 : min(nk, last / kKRows + 1);
+}
+
+// whether the tile at key row k0 needs the element mask for rows from r0:
+// it crosses the causal diagonal or the ragged end of K
+__device__ __forceinline__ bool needs_mask(const Dims& p, int r0, int k0) {
+  return k0 + kKRows > p.Tk ||
+         (p.causal && p.k_off + k0 + kKRows - 1 > p.q_off + r0);
+}
+
+// Accumulator fragment of a 64 x 64 wgmma tile: thread `lane` of warp `wi`
+// in the warpgroup holds entry r at row 16 wi + lane / 4 + 8 half(r) and
+// column col(r) + 2 (lane % 4)
+__device__ __forceinline__ int half_of(int r) { return (r >> 1) & 1; }
+__device__ __forceinline__ int col_of(int r) { return 8 * (r >> 2) + (r & 1); }
+
+// the 64 x 64 accumulator as four k16 slices of the register A operand,
+// rounded to bf16: slice kk holds columns 16 kk .. 16 kk + 15
+__device__ __forceinline__ void to_a_operand(const float (&x)[32],
+                                             uint32_t (&a)[4][4]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      a[kk][j] = hopper::pack_bf16(x[8 * kk + 2 * j], x[8 * kk + 2 * j + 1]);
+}
+
+// acc = the rows [64 w, 64 w + 64) of tile A times tile B^T over DMAX,
+// both from shared memory, K-major: A has kQRows rows per atom, B kKRows
+template <int DMAX>
+__device__ __forceinline__ void product_ss(float (&acc)[32], const uint8_t* A,
+                                           int w, const uint8_t* B) {
+  hopper::fence_regs(acc);
+  hopper::wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < DMAX / 16; ++kk) {
+    const int atom = kk / 4, off = (kk % 4) * 32;
+    hopper::wgmma_ss(
+        acc, hopper::desc_b128(A + (atom * kQRows + 64 * w) * kRow + off),
+        hopper::desc_b128(B + atom * kKRows * kRow + off), kk > 0);
+  }
+}
+
+// acc[atom] += a (register A operand, 64 keys wide) times the tile B read
+// MN-major from shared memory: P V in K2, dS K in K3
+template <int DMAX>
+__device__ __forceinline__ void product_rs(float (&acc)[DMAX / 64][32],
+                                           const uint32_t (&a)[4][4],
+                                           const uint8_t* B) {
+#pragma unroll
+  for (int atom = 0; atom < DMAX / 64; ++atom) hopper::fence_regs(acc[atom]);
+  hopper::wgmma_fence();
+#pragma unroll
+  for (int atom = 0; atom < DMAX / 64; ++atom)
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      hopper::wgmma_rs_tn(acc[atom], a[kk],
+                          hopper::desc_b128(B + (atom * kKRows + 16 * kk) *
+                                                    kRow));
+}
+
+// the block's barriers: Q (and dO) loaded; stage s full; stage s released
+// by every consumer warp
+template <int S>
+__device__ __forceinline__ void init_barriers(uint64_t* q_full,
+                                              uint64_t* full,
+                                              uint64_t* empty) {
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(q_full, 1);
+    for (int s = 0; s < S; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&empty[s], kConsumers / 32);
+    }
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
+}
+
+// half i of this thread's accumulator rows, divided by div, into
+// row[0, D) as bf16
+template <int NA>
+__device__ __forceinline__ void store_row(__nv_bfloat16* row,
+                                          const float (&acc)[NA][32], int i,
+                                          float div, int col_t, int D) {
+#pragma unroll
+  for (int a = 0; a < NA; ++a)
+#pragma unroll
+    for (int r = 0; r < 32; r += 2) {
+      if (half_of(r) != i) continue;
+      const int d = 64 * a + col_of(r) + col_t;
+      if (d < D)
+        *reinterpret_cast<__nv_bfloat162*>(row + d) =
+            __floats2bfloat162_rn(acc[a][r] / div, acc[a][r + 1] / div);
+    }
+}
+
+// the producer's loop: tile t of K and V into stage t % S once the
+// consumers have released it
+template <int DMAX>
+__device__ __forceinline__ void produce_kv(const CUtensorMap* mk,
+                                           const CUtensorMap* mv, uint8_t* KV,
+                                           uint64_t* full, uint64_t* empty,
+                                           int n_tiles, int hk, int b) {
+  using C = Cfg<DMAX>;
+  for (int t = 0; t < n_tiles; ++t) {
+    const int s = t % C::kStages;
+    if (t >= C::kStages) hopper::mbar_wait(&empty[s], (t / C::kStages - 1) & 1);
+    uint8_t* Ks = KV + s * C::kStageBytes;
+    uint8_t* Vs = Ks + C::kKBytes;
+    hopper::mbar_arrive_expect_tx(&full[s], C::kStageBytes);
+#pragma unroll
+    for (int a = 0; a < C::kAtoms; ++a) {
+      hopper::tma_load_4d(Ks + a * kKRows * kRow, mk, &full[s], 64 * a, hk,
+                          t * kKRows, b);
+      hopper::tma_load_4d(Vs + a * kKRows * kRow, mv, &full[s], 64 * a, hk,
+                          t * kKRows, b);
+    }
+  }
+}
+
+}  // namespace wg
+
+// ------------------------------------------------------- K2, bf16, wgmma
+template <int DMAX>
+__global__ void __launch_bounds__(wg::kThreads, 1)
+flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap mq,
+                       const __grid_constant__ CUtensorMap mk,
+                       const __grid_constant__ CUtensorMap mv,
+                       __nv_bfloat16* __restrict__ o,
+                       float* __restrict__ lse, Dims p) {
+  using C = wg::Cfg<DMAX>;
+  constexpr int NA = C::kAtoms, S = C::kStages;
+  extern __shared__ uint8_t wg_smem[];
+  uint8_t* Qs = wg::align1024(wg_smem);
+  uint8_t* KV = Qs + C::kQBytes;
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(KV + S * C::kStageBytes);
+  uint64_t* full = q_full + 1;
+  uint64_t* empty = full + S;
+
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * wg::kQRows;  // longest first
+  const int n_tiles =
+      max(wg::live_tiles(p, q0), wg::live_tiles(p, q0 + 64));
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  wg::init_barriers<S>(q_full, full, empty);
+
+  if (warp == wg::kConsumers / 32) {  // ---- producer
+    if (lane == 0 && n_tiles > 0) {
+      hopper::tma_prefetch_map(&mq);
+      hopper::tma_prefetch_map(&mk);
+      hopper::tma_prefetch_map(&mv);
+      hopper::mbar_arrive_expect_tx(q_full, C::kQBytes);
+      for (int a = 0; a < NA; ++a)
+        hopper::tma_load_4d(Qs + a * wg::kQRows * wg::kRow, &mq, q_full,
+                            64 * a, h, q0, b);
+      wg::produce_kv<DMAX>(&mk, &mv, KV, full, empty, n_tiles, h / p.g, b);
+    }
+    return;
+  }
+
+  // ---- consumers: warpgroup w owns rows [r0, r0 + 64)
+  const int w = warp / 4, wi = warp % 4;
+  const int r0 = q0 + 64 * w;
+  const int mine = wg::live_tiles(p, r0);
+  const int row_a = r0 + 16 * wi + lane / 4;  // and row_a + 8
+  const int col_t = 2 * (lane % 4);
+  const float sl2 = p.scale * wg::kLog2e;
+  float oacc[NA][32], sacc[32];
+  float m[2] = {kNegInf, kNegInf}, lp[2] = {0.f, 0.f};
+#pragma unroll
+  for (int r = 0; r < 32; ++r) {
+    sacc[r] = 0.f;
+#pragma unroll
+    for (int a = 0; a < NA; ++a) oacc[a][r] = 0.f;
+  }
+  if (n_tiles > 0) hopper::mbar_wait(q_full, 0);
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const int s = t % S;
+    hopper::mbar_wait(&full[s], (t / S) & 1);
+    const uint8_t* Ks = KV + s * C::kStageBytes;
+    if (t < mine) {
+      wg::product_ss<DMAX>(sacc, Qs, w, Ks);
+      hopper::wgmma_commit();
+      hopper::wgmma_wait0();
+      hopper::fence_regs(sacc);
+
+      const int k0 = t * wg::kKRows;
+      if (wg::needs_mask(p, r0, k0)) {
+#pragma unroll
+        for (int r = 0; r < 32; ++r) {
+          const int qi = row_a + 8 * wg::half_of(r);
+          const int kj = k0 + wg::col_of(r) + col_t;
+          if (kj >= p.Tk || (p.causal && p.q_off + qi < p.k_off + kj))
+            sacc[r] = -INFINITY;
+        }
+      }
+      float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+      for (int r = 0; r < 32; ++r)
+        mx[wg::half_of(r)] = fmaxf(mx[wg::half_of(r)], sacc[r]);
+      float alpha[2], mneg[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+        const float m_new = fmaxf(m[i], mx[i] * p.scale);
+        alpha[i] = hopper::ex2((m[i] - m_new) * wg::kLog2e);
+        m[i] = m_new;
+        mneg[i] = -m_new * wg::kLog2e;
+        lp[i] *= alpha[i];
+      }
+#pragma unroll
+      for (int r = 0; r < 32; ++r) {
+        const int i = wg::half_of(r);
+        sacc[r] = hopper::ex2(fmaf(sacc[r], sl2, mneg[i]));
+        lp[i] += sacc[r];  // the unrounded p, as the plain version sums
+      }
+      uint32_t pa[4][4];
+      wg::to_a_operand(sacc, pa);
+#pragma unroll
+      for (int a = 0; a < NA; ++a)
+#pragma unroll
+        for (int r = 0; r < 32; ++r) oacc[a][r] *= alpha[wg::half_of(r)];
+      wg::product_rs<DMAX>(oacc, pa, Ks + C::kKBytes);
+      hopper::wgmma_commit();
+      hopper::wgmma_wait0();
+#pragma unroll
+      for (int a = 0; a < NA; ++a) hopper::fence_regs(oacc[a]);
+    }
+    __syncwarp();
+    if (lane == 0) hopper::mbar_arrive(&empty[s]);
+  }
+
+  // ---- epilogue: O = acc / l in bf16 and lse, once
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    lp[i] += __shfl_xor_sync(0xffffffffu, lp[i], 1);
+    lp[i] += __shfl_xor_sync(0xffffffffu, lp[i], 2);
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int t = row_a + 8 * i;
+    if (t >= p.Tq) continue;
+    const float l = fmaxf(lp[i], 1e-30f);
+    const long long row = (static_cast<long long>(b) * p.Tq + t) * p.H + h;
+    wg::store_row<NA>(o + row * p.D, oacc, i, l, col_t, p.D);
+    if (lane % 4 == 0)
+      lse[(static_cast<long long>(b) * p.H + h) * p.Tq + t] = m[i] + logf(l);
+  }
+}
+
+// ------------------------------------------------------- K3, bf16, wgmma
+template <int DMAX>
+__global__ void __launch_bounds__(wg::kThreads, 1)
+flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap mq,
+                          const __grid_constant__ CUtensorMap mk,
+                          const __grid_constant__ CUtensorMap mv,
+                          const __grid_constant__ CUtensorMap mdo,
+                          const float* __restrict__ lse,
+                          const float* __restrict__ dvec,
+                          __nv_bfloat16* __restrict__ dq, Dims p) {
+  using C = wg::Cfg<DMAX>;
+  constexpr int NA = C::kAtoms, S = C::kStages;
+  extern __shared__ uint8_t wg_smem[];
+  uint8_t* Qs = wg::align1024(wg_smem);
+  uint8_t* Os = Qs + C::kQBytes;  // dO
+  uint8_t* KV = Os + C::kQBytes;
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(KV + S * C::kStageBytes);
+  uint64_t* full = q_full + 1;
+  uint64_t* empty = full + S;
+
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * wg::kQRows;
+  const int n_tiles =
+      max(wg::live_tiles(p, q0), wg::live_tiles(p, q0 + 64));
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  wg::init_barriers<S>(q_full, full, empty);
+
+  if (warp == wg::kConsumers / 32) {  // ---- producer
+    if (lane == 0 && n_tiles > 0) {
+      hopper::tma_prefetch_map(&mq);
+      hopper::tma_prefetch_map(&mdo);
+      hopper::tma_prefetch_map(&mk);
+      hopper::tma_prefetch_map(&mv);
+      hopper::mbar_arrive_expect_tx(q_full, 2 * C::kQBytes);
+      for (int a = 0; a < NA; ++a) {
+        hopper::tma_load_4d(Qs + a * wg::kQRows * wg::kRow, &mq, q_full,
+                            64 * a, h, q0, b);
+        hopper::tma_load_4d(Os + a * wg::kQRows * wg::kRow, &mdo, q_full,
+                            64 * a, h, q0, b);
+      }
+      wg::produce_kv<DMAX>(&mk, &mv, KV, full, empty, n_tiles, h / p.g, b);
+    }
+    return;
+  }
+
+  // ---- consumers: warpgroup w owns rows [r0, r0 + 64)
+  const int w = warp / 4, wi = warp % 4;
+  const int r0 = q0 + 64 * w;
+  const int mine = wg::live_tiles(p, r0);
+  const int row_a = r0 + 16 * wi + lane / 4;  // and row_a + 8
+  const int col_t = 2 * (lane % 4);
+  const float sl2 = p.scale * wg::kLog2e;
+  float lneg[2], dv[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int t = row_a + 8 * i;
+    const long long at = (static_cast<long long>(b) * p.H + h) * p.Tq + t;
+    lneg[i] = t < p.Tq ? -lse[at] * wg::kLog2e : 0.f;
+    dv[i] = t < p.Tq ? dvec[at] : 0.f;
+  }
+  float dqacc[NA][32], sacc[32], dpacc[32];
+#pragma unroll
+  for (int r = 0; r < 32; ++r) {
+    sacc[r] = dpacc[r] = 0.f;
+#pragma unroll
+    for (int a = 0; a < NA; ++a) dqacc[a][r] = 0.f;
+  }
+  if (n_tiles > 0) hopper::mbar_wait(q_full, 0);
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const int s = t % S;
+    hopper::mbar_wait(&full[s], (t / S) & 1);
+    const uint8_t* Ks = KV + s * C::kStageBytes;
+    if (t < mine) {
+      wg::product_ss<DMAX>(sacc, Qs, w, Ks);
+      wg::product_ss<DMAX>(dpacc, Os, w, Ks + C::kKBytes);
+      hopper::wgmma_commit();
+      hopper::wgmma_wait0();
+      hopper::fence_regs(sacc);
+      hopper::fence_regs(dpacc);
+
+      const int k0 = t * wg::kKRows;
+      const bool masked = wg::needs_mask(p, r0, k0);
+#pragma unroll
+      for (int r = 0; r < 32; ++r) {
+        const int i = wg::half_of(r);
+        const float pr = hopper::ex2(fmaf(sacc[r], sl2, lneg[i]));
+        float ds = pr * (dpacc[r] - dv[i]) * p.scale;
+        if (masked) {
+          const int qi = row_a + 8 * i;
+          const int kj = k0 + wg::col_of(r) + col_t;
+          if (kj >= p.Tk || (p.causal && p.q_off + qi < p.k_off + kj))
+            ds = 0.f;
+        }
+        sacc[r] = ds;
+      }
+      uint32_t da[4][4];
+      wg::to_a_operand(sacc, da);  // ds rounded to bf16
+      wg::product_rs<DMAX>(dqacc, da, Ks);
+      hopper::wgmma_commit();
+      hopper::wgmma_wait0();
+#pragma unroll
+      for (int a = 0; a < NA; ++a) hopper::fence_regs(dqacc[a]);
+    }
+    __syncwarp();
+    if (lane == 0) hopper::mbar_arrive(&empty[s]);
+  }
+
+  // ---- epilogue: dQ in bf16, once
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int t = row_a + 8 * i;
+    if (t >= p.Tq) continue;
+    const long long row = (static_cast<long long>(b) * p.Tq + t) * p.H + h;
+    wg::store_row<NA>(dq + row * p.D, dqacc, i, 1.f, col_t, p.D);
+  }
+}
+
 // ------------------------------------------------------------- launchers
 // dynamic shared memory of each kernel, in floats
 template <int DMAX> constexpr int fwd_floats() {
@@ -568,6 +1016,118 @@ cudaError_t bwd_dkv(const Dims& p, const void* q, const void* k,
   return cudaGetLastError();
 }
 
+// cuTensorMapEncodeTiled, resolved at run time through
+// cudaGetDriverEntryPoint so that the library links against the CUDA
+// runtime alone (no -lcuda)
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
+#endif
+    if (e == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(ptr);
+  }
+  return fn;
+}
+
+// The TMA map of a bf16 x[B, T, H, D] (element strides st) as the 4-d
+// tensor (D, H, T, B), in that order so that the byte strides grow, with a
+// box of (64, 1, rows, 1): `rows` rows of one head, 64 columns (one 128-byte
+// swizzle atom), 128B swizzle, zero fill outside the tensor. A dim of size 1
+// gets the stride of a dense layout (its coordinate is always 0). TMA needs
+// a 16-byte aligned base, unit stride along D and 16-byte multiples for the
+// other strides; the wrapper hands over only such tensors (tma_ready).
+cudaError_t make_map(CUtensorMap* map, const void* x, const long long* st,
+                     int B, int T, int H, int D, int rows) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return cudaErrorSymbolNotFound;
+  if (reinterpret_cast<uintptr_t>(x) % 16 || st[3] != 1)
+    return cudaErrorInvalidValue;
+  const cuuint64_t dims[4] = {cuuint64_t(D), cuuint64_t(H), cuuint64_t(T),
+                              cuuint64_t(B)};
+  const long long outer[3] = {st[2], st[1], st[0]};  // H, T, B
+  cuuint64_t strides[3];
+  cuuint64_t extent = cuuint64_t(D) * 2;  // bytes spanned by the inner dims
+  for (int i = 0; i < 3; ++i) {
+    const cuuint64_t s = dims[i + 1] == 1
+                             ? (extent + 15) / 16 * 16
+                             : static_cast<cuuint64_t>(outer[i]) * 2;
+    if (s % 16) return cudaErrorInvalidValue;
+    strides[i] = s;
+    extent = s * dims[i + 1];
+  }
+  const cuuint32_t box[4] = {64, 1, cuuint32_t(rows), 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUresult r = fn(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(x), dims,
+      strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+dim3 wgmma_grid(const Dims& p) {  // (q head, batch, Q tile)
+  return dim3(p.H, p.B, (p.Tq + wg::kQRows - 1) / wg::kQRows);
+}
+
+template <int DMAX>
+cudaError_t fwd_wgmma(const Dims& p, const void* q, const void* k,
+                      const void* v, void* o, void* lse, cudaStream_t s) {
+  CUtensorMap mq, mk, mv;
+  cudaError_t e;
+  if ((e = make_map(&mq, q, p.sq, p.B, p.Tq, p.H, p.D, wg::kQRows)) ||
+      (e = make_map(&mk, k, p.sk, p.B, p.Tk, p.Hk, p.D, wg::kKRows)) ||
+      (e = make_map(&mv, v, p.sv, p.B, p.Tk, p.Hk, p.D, wg::kKRows)))
+    return e;
+  const int bytes = wg::Cfg<DMAX>::smem(1);
+  e = cudaFuncSetAttribute(flash_fwd_wgmma_kernel<DMAX>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (e != cudaSuccess) return e;
+  const dim3 grid = wgmma_grid(p);
+  if (grid.z > 65535) return cudaErrorInvalidValue;
+  flash_fwd_wgmma_kernel<DMAX><<<grid, wg::kThreads, bytes, s>>>(
+      mq, mk, mv, static_cast<__nv_bfloat16*>(o), static_cast<float*>(lse),
+      p);
+  return cudaGetLastError();
+}
+
+template <int DMAX>
+cudaError_t bwd_dq_wgmma(const Dims& p, const void* q, const void* k,
+                         const void* v, const void* dout, const void* lse,
+                         const void* dvec, void* dq, cudaStream_t s) {
+  CUtensorMap mq, mk, mv, mdo;
+  cudaError_t e;
+  if ((e = make_map(&mq, q, p.sq, p.B, p.Tq, p.H, p.D, wg::kQRows)) ||
+      (e = make_map(&mdo, dout, p.sdo, p.B, p.Tq, p.H, p.D, wg::kQRows)) ||
+      (e = make_map(&mk, k, p.sk, p.B, p.Tk, p.Hk, p.D, wg::kKRows)) ||
+      (e = make_map(&mv, v, p.sv, p.B, p.Tk, p.Hk, p.D, wg::kKRows)))
+    return e;
+  const int bytes = wg::Cfg<DMAX>::smem(2);
+  e = cudaFuncSetAttribute(flash_bwd_dq_wgmma_kernel<DMAX>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (e != cudaSuccess) return e;
+  const dim3 grid = wgmma_grid(p);
+  if (grid.z > 65535) return cudaErrorInvalidValue;
+  flash_bwd_dq_wgmma_kernel<DMAX><<<grid, wg::kThreads, bytes, s>>>(
+      mq, mk, mv, mdo, static_cast<const float*>(lse),
+      static_cast<const float*>(dvec), static_cast<__nv_bfloat16*>(dq), p);
+  return cudaGetLastError();
+}
+
 // dtype code: 0 = float32, 1 = bfloat16; head dims up to 64 take the
 // narrower instantiation
 #define DISPATCH(dtype, D, FN, ...)                                      \
@@ -576,6 +1136,13 @@ cudaError_t bwd_dkv(const Dims& p, const void* q, const void* k,
                     : FN<float, 128>(__VA_ARGS__))                      \
        : ((D) <= 64 ? FN<__nv_bfloat16, 64>(__VA_ARGS__)                \
                     : FN<__nv_bfloat16, 128>(__VA_ARGS__)))
+// K2 and K3 split on the type: float32 to the SIMT kernels, bfloat16 to the
+// wgmma ones. Not a fallback: each type has exactly one kernel.
+#define DISPATCH_SPLIT(dtype, D, SIMT, WGMMA, ...)                       \
+  ((dtype) == 0                                                         \
+       ? ((D) <= 64 ? SIMT<float, 64>(__VA_ARGS__)                      \
+                    : SIMT<float, 128>(__VA_ARGS__))                    \
+       : ((D) <= 64 ? WGMMA<64>(__VA_ARGS__) : WGMMA<128>(__VA_ARGS__)))
 
 }  // namespace
 
@@ -587,7 +1154,8 @@ extern "C" int flash_fwd_launch(int dtype, const long long* ints, float scale,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(DISPATCH(dtype, p.D, fwd, p, q, k, v, o, lse, s));
+  return static_cast<int>(
+      DISPATCH_SPLIT(dtype, p.D, fwd, fwd_wgmma, p, q, k, v, o, lse, s));
 }
 
 extern "C" int flash_bwd_dq_launch(int dtype, const long long* ints,
@@ -601,7 +1169,8 @@ extern "C" int flash_bwd_dq_launch(int dtype, const long long* ints,
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return static_cast<int>(
-      DISPATCH(dtype, p.D, bwd_dq, p, q, k, v, dout, lse, dvec, dq, s));
+      DISPATCH_SPLIT(dtype, p.D, bwd_dq, bwd_dq_wgmma, p, q, k, v, dout, lse,
+                     dvec, dq, s));
 }
 
 extern "C" int flash_bwd_dkv_launch(int dtype, const long long* ints,

@@ -4,9 +4,10 @@ Each ``minips_tpu_torch/csrc/<name>.cu`` has a plain C interface. At first
 use it is compiled with ``nvcc`` for Hopper (``sm_90a``) into a shared
 library under ``build/minips_tpu_torch/`` beside the package (a directory
 ``.gitignore`` lists), then loaded with ``ctypes``. The library's file
-name carries a hash of the source, so an edited source is rebuilt and a
-stale library is never loaded. Nothing here runs at import: the CPU tests
-import every module on a machine without ``nvcc``.
+name carries a hash of the source and of the headers beside it, so an
+edited source or header is rebuilt and a stale library is never loaded.
+Nothing here runs at import: the CPU tests import every module on a
+machine without ``nvcc``.
 
 ``build_all`` starts one ``nvcc`` per missing source, all at once, and
 waits for them together, so the build costs the slowest file, not the sum.
@@ -24,6 +25,9 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC.parent.parent / "build" / "minips_tpu_torch"
+# sm_90a, not sm_90: wgmma exists only for the "a" target. No -lcuda: the
+# one libcuda function the kernels need (cuTensorMapEncodeTiled, for TMA
+# maps) is resolved at run time. -Xptxas -v prints registers and spills.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -41,9 +45,14 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    """Where ``csrc/<name>.cu`` builds to. The hash covers the source and
+    every ``csrc/*.cuh`` header beside it (any source may include any of
+    them), so that an edited header rebuilds too."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode())
+        h.update(header.read_bytes())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
 def build_all(names) -> dict[str, str]:

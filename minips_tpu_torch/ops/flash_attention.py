@@ -15,18 +15,23 @@ of the stack, never materialising the ``[T, T]`` scores on the card:
 
 Three kernels carry the primitive: K2 (``flash_forward``), K3
 (``flash_bwd_dq``) and K4 (``flash_bwd_dkv``), hand-written CUDA C++ for
-Hopper in ``minips_tpu_torch/csrc/flash_attn.cu``. Which version runs
-depends only on where the tensors lie: a CUDA tensor launches the kernel
-(and counts it in ``<wrapper>.launches``) or raises; a CPU tensor runs the
-plain version beside it (``flash_forward_reference``,
+Hopper in ``minips_tpu_torch/csrc/flash_attn.cu``. On bfloat16 K2 and K3
+are the ``wgmma`` kernels (tensor cores, TMA tile loads into a ring of
+shared-memory stages); on float32 they are the first SIMT kernels, which
+keep full f32 products (``wgmma`` on f32 would be TF32). K4 is the SIMT
+kernel in both types. Which version runs depends only on where the
+tensors lie: a CUDA tensor launches the kernel (and counts it in
+``<wrapper>.launches``) or raises; a CPU tensor runs the plain version
+beside it (``flash_forward_reference``,
 ``flash_bwd_dq_reference``, ``flash_bwd_dkv_reference``), the same
 function with the same rounding points and masks. There is no switch and
 no fallback. On the card the shape gate is the kernels' own
 (``kernel_supported``: any Tq and Tk, D a multiple of 8 up to 128, kv heads
 dividing q heads), not the JAX package's block-size gate, which existed for
-the TPU's tiles. The kernels tile at ``KERNEL_BLOCK`` = 64 rows; a caller's
-``block_k`` sets only the plain version's K tile (its online-softmax
-rounding follows its tiles, as the TPU kernel's does).
+the TPU's tiles. The kernels tile K at ``KERNEL_BLOCK`` = 64 rows (Q at
+64, or 128 in the bfloat16 K2/K3); a caller's ``block_k`` sets only the
+plain version's K tile (its online-softmax rounding follows its tiles, as
+the TPU kernel's does).
 """
 
 from __future__ import annotations
@@ -38,7 +43,7 @@ from typing import Optional
 import torch
 
 NEG_INF = -1e30  # finite mask value: no -inf arithmetic on masked rows
-KERNEL_BLOCK = 64  # the CUDA kernels' Q and K tile rows
+KERNEL_BLOCK = 64  # the CUDA kernels' K tile rows
 MAX_HEAD_DIM = 128
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -272,6 +277,36 @@ def _check(name, q, k, v, *rest):
     return False
 
 
+def tma_ready(t: torch.Tensor) -> bool:
+    """Whether the bfloat16 K2/K3 kernels' TMA loads take ``t [B, T, H, D]``
+    as it lies: unit stride along D, a 16-byte aligned base, 16-byte
+    multiples for the other strides, and strides growing from H to T to B
+    over the dims longer than 1 (the order of the kernels' tensor map). The
+    LM's q/k/v, strided views of the fused ``qkv`` activation, pass as they
+    are; a tensor that fails goes to the kernel as a contiguous copy."""
+    item = t.element_size()
+    if t.stride(3) != 1 or t.data_ptr() % 16:
+        return False
+    inner = t.shape[3]  # elements spanned by the dims inside
+    for dim in (2, 1, 0):
+        if t.shape[dim] == 1:
+            continue
+        stride = t.stride(dim)
+        if (stride * item) % 16 or stride < inner:
+            return False
+        inner = stride * t.shape[dim]
+    return True
+
+
+def _for_tma(*tensors):
+    """The tensors as the bfloat16 K2/K3 take them: each that is not
+    :func:`tma_ready` replaced by a contiguous copy (a fresh, aligned
+    allocation)."""
+    return tuple(t if tma_ready(t)
+                 else t.clone(memory_format=torch.contiguous_format)
+                 for t in tensors)
+
+
 def _ints(q, k, v, dout, q_off, k_off, causal):
     B, Tq, H, D = q.shape
     vals = [B, Tq, k.shape[1], H, k.shape[2], D, q_off, k_off, int(causal)]
@@ -311,10 +346,13 @@ def flash_forward(q, k, v, q_off: int = 0, k_off: int = 0, *, causal: bool,
     """K2: ``(out [B, Tq, H, D], lse [B, H, Tq, 1] float32)``. CUDA
     tensors launch the kernel (counted in ``flash_forward.launches``); CPU
     tensors run :func:`flash_forward_reference` with K tiles of
-    ``block_k``."""
+    ``block_k``. On bfloat16 a q, k or v that is not :func:`tma_ready` is
+    made contiguous before the launch."""
     if _check("flash_forward", q, k, v):
         return flash_forward_reference(q, k, v, q_off, k_off, causal=causal,
                                        scale=scale, block_k=block_k)
+    if q.dtype == torch.bfloat16:
+        q, k, v = _for_tma(q, k, v)
     B, Tq, H, D = q.shape
     out = torch.empty((B, Tq, H, D), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, H, Tq, 1), dtype=torch.float32, device=q.device)
@@ -329,11 +367,14 @@ def flash_bwd_dq(q, k, v, dout, lse, dvec, q_off: int = 0, k_off: int = 0,
     """K3: dQ ``[B, Tq, H, D]`` in q's type from the saved ``lse`` and
     ``dvec`` (both ``[B, H, Tq, 1]`` float32). CUDA tensors launch the
     kernel (counted in ``flash_bwd_dq.launches``); CPU tensors run
-    :func:`flash_bwd_dq_reference`."""
+    :func:`flash_bwd_dq_reference`. On bfloat16 a q, k, v or dO that is not
+    :func:`tma_ready` is made contiguous before the launch."""
     if _check("flash_bwd_dq", q, k, v, dout, lse, dvec):
         return flash_bwd_dq_reference(q, k, v, dout, lse, dvec, q_off, k_off,
                                       causal=causal, scale=scale)
     lse, dvec = _rows(q, dout, lse, dvec)
+    if q.dtype == torch.bfloat16:
+        q, k, v, dout = _for_tma(q, k, v, dout)
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     _launch("flash_bwd_dq_launch", "flash_bwd_dq", q, k, v, dout, q_off,
             k_off, causal, scale, (q, k, v, dout, lse, dvec, dq))

@@ -239,6 +239,52 @@ def test_cpu_tensors_do_not_count_launches_and_other_devices_raise():
         "libflash_attn-")
 
 
+def _bf16(*shape):
+    return torch.arange(int(np.prod(shape)), dtype=torch.float32).reshape(
+        shape).to(torch.bfloat16)
+
+
+def _qkv_view(B=2, T=16, H=4, D=64):
+    """q, k, v as the LM block hands them over: strided views of one fused
+    ``[B, T, 3, H·D]`` activation."""
+    qkv = _bf16(B, T, 3, H * D)
+    return tuple(qkv[:, :, i].reshape(B, T, H, D) for i in range(3))
+
+
+@pytest.mark.parametrize("make,ready", [
+    (lambda: _bf16(2, 16, 4, 64), True),                      # contiguous
+    (lambda: _qkv_view()[0], True),                           # fused qkv: q
+    (lambda: _qkv_view()[2], True),                           # ... and v
+    (lambda: _bf16(2, 4, 16, 64).transpose(1, 2), False),     # [B, H, T, D]
+    (lambda: _bf16(2, 16, 4, 128)[..., ::2], False),          # D stride 2
+    (lambda: _bf16(4 * 64 + 8)[8:].reshape(1, 4, 1, 64), True),   # base + 16B
+    (lambda: _bf16(4 * 64 + 4)[4:].reshape(1, 4, 1, 64), False),  # base + 8B
+    (lambda: _bf16(4 * 64 + 1)[1:].reshape(1, 4, 1, 64), False),  # base + 2B
+    (lambda: _bf16(64 * 68).as_strided((1, 16, 1, 64), (0, 68, 0, 1)),
+     False),                                                  # 136-byte rows
+    (lambda: _bf16(64 * 72).as_strided((1, 16, 1, 64), (5, 72, 3, 1)),
+     True),                                                   # size-1 dims
+])
+def test_tma_ready_predicate(make, ready):
+    """Which [B, T, H, D] tensors the bf16 K2/K3 read through TMA as they
+    lie, and that the others go over as aligned contiguous copies with the
+    same values."""
+    x = make()
+    assert tfa.tma_ready(x) is ready
+    (y,) = tfa._for_tma(x)
+    assert (y is x) is ready
+    assert tfa.tma_ready(y) and torch.equal(y, x)
+
+
+def test_for_tma_keeps_ready_views_and_copies_the_rest():
+    q, k, v = _qkv_view(1, 8, 2, 64)
+    t = _bf16(1, 2, 8, 64).transpose(1, 2)
+    got = tfa._for_tma(q, k, v, t)
+    assert got[0] is q and got[1] is k and got[2] is v
+    assert got[3] is not t and got[3].is_contiguous()
+    assert torch.equal(got[3], t)
+
+
 # ------------------------------------------------------------- on the card
 @pytest.fixture
 def cuda_device():
@@ -260,6 +306,12 @@ def _norm_err(got, want):
     (2, 128, 128, 4, 4, 64, 0, 0),
     (1, 100, 100, 8, 2, 40, 0, 0),      # ragged T, GQA g = 4, D = 40
     (1, 64, 192, 4, 1, 128, 128, 0),    # offsets, Tq != Tk, MQA, D = 128
+    (16, 1024, 1024, 32, 32, 64, 0, 0),  # the LM's full width
+    (1, 192, 192, 8, 2, 64, 0, 0),      # Tq not a multiple of the 128-row
+                                        # bf16 Q tile, GQA g = 4
+    (2, 1, 70, 4, 2, 8, 69, 0),         # one query row at the end, D = 8
+    (1, 130, 130, 2, 1, 72, 0, 0),      # D = 72: a second atom 8 wide
+    (1, 64, 256, 4, 2, 64, 0, 192),     # causal rows that see no key
 ])
 def test_kernels_match_plain_versions_on_card(cuda_device, shape, causal,
                                               dtype):
@@ -292,3 +344,35 @@ def test_kernels_match_plain_versions_on_card(cuda_device, shape, causal,
     rdk, rdv = tfa.flash_bwd_dkv_reference(q, k, v, do, rlse, dvec, q_off,
                                            k_off, **args)
     assert _norm_err(dk, rdk) <= tol and _norm_err(dv, rdv) <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("view", ["heads_first", "misaligned"])
+def test_bf16_views_tma_cannot_read_go_as_copies_on_card(cuda_device, view):
+    """A bf16 q that the kernels' TMA maps cannot take as it lies ([B, H, T,
+    D] storage seen transposed, or a base 2 bytes off 16) reaches K2 and K3
+    as a contiguous copy: same results as the plain versions, 2^-7 of
+    max(1, max |value|), and lse to 1e-4."""
+    B, T, H, Hk, D = 2, 160, 4, 2, 64
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+
+    def rnd(*s):
+        return torch.randn(s, generator=gen, device=cuda_device).to(
+            torch.bfloat16)
+
+    if view == "heads_first":
+        q = rnd(B, H, T, D).transpose(1, 2)
+    else:
+        q = rnd(B * T * H * D + 1)[1:].reshape(B, T, H, D)
+    assert not tfa.tma_ready(q)
+    k, v, do = rnd(B, T, Hk, D), rnd(B, T, Hk, D), rnd(B, T, H, D)
+    args = dict(causal=True, scale=D ** -0.5)
+    out, lse = tfa.flash_forward(q, k, v, **args)
+    ref, rlse = tfa.flash_forward_reference(q, k, v, **args)
+    dvec = (do.float() * ref.float()).sum(-1).transpose(1, 2)[..., None]
+    dq = tfa.flash_bwd_dq(q, k, v, do, rlse, dvec, **args)
+    torch.cuda.synchronize()
+    assert _norm_err(out, ref) <= 2.0 ** -7
+    assert float((lse - rlse).abs().max()) <= 1e-4
+    assert _norm_err(dq, tfa.flash_bwd_dq_reference(
+        q, k, v, do, rlse, dvec, **args)) <= 2.0 ** -7
