@@ -28,16 +28,16 @@ on failure:
 6. pull: ``SparseTable.pull`` through the kernel at D = 8 and D = 128;
 7. flash kernels: K2, K3 and K4 against their plain versions (f32 and
    bf16, causal and not, GQA, global offsets, ragged T, Tq not a multiple
-   of the bf16 kernels' 128-row Q tile, the full-width shape), the
-   gradients through the autograd op with a nonzero lse cotangent;
+   of the bf16 kernels' 128-row Q tile, the full-width shape, q/k/v as
+   the LM block's strided views of its fused activation), the gradients
+   through the autograd op with a nonzero lse cotangent;
 8. LM path: 10 steps at full width, with finite and falling loss, each
    flash kernel launched once per block per step, step time, tokens/s and
    the profiler's idle share; the first 3 steps of a small LM on the card
    and on the CPU port from the same weights;
 9. timings: every kernel's time at its main path's shapes beside its plain
    version's, one PyTorch call's and the least time the card could take,
-   with the kernel's design (``wgmma`` or ``simt``) and, for the redesigned
-   K2 and K3, their first versions' times.
+   with the kernel's design (``wgmma`` or ``simt``).
 
 The last two lines are a JSON object with every kernel's numbers and then
 ``{"ok": true, "device": {...}}``. Without CUDA, or without the package
@@ -87,10 +87,6 @@ FLASH_TOL = {"float32": 1e-4, "bfloat16": 2.0 ** -7}
 LSE_TOL = 1e-4  # lse is float32 on both sides
 # peak rates of an H100 SXM (NVIDIA data sheet): dense bf16 tensor cores
 BF16_FLOPS = 989e12
-# K2's and K3's times in their first (SIMT, f32 FMA) versions at the LM's
-# shape, measured by this script on an NVIDIA H100 80GB HBM3 at 700 W; the
-# kernels line carries them beside the wgmma kernels' times
-EARLIER_MS = {"flash_forward": 4.1146, "flash_bwd_dq": 5.7931}
 DESIGN = {"gather_rows": "simt", "flash_forward": "wgmma",
           "flash_bwd_dq": "wgmma", "flash_bwd_dkv": "simt"}
 # the bf16 K2 and K3 kernels, each of which must hold HGMMA instructions
@@ -117,6 +113,39 @@ def gpu_line() -> str:
     return out[0]
 
 
+def kernel_name(mangled: str) -> str:
+    """A kernel template's mangled name as ``flash_fwd_kernel<bf16,64>``
+    (element type and head-dim instantiation) or ``gather_rows_kernel<j>``
+    (its mangled template argument). The name is the identifier ending in
+    ``_kernel`` that its length prefix delimits: the namespace before it
+    may end in digits too."""
+    tag = mangled.find("_kernelI")
+    if tag < 0:
+        return mangled
+    end = tag + len("_kernel")
+    start = next((i for i in range(end - 1, 0, -1)
+                  if mangled[:i].endswith(str(end - i))), None)
+    if start is None:
+        return mangled
+    dmax = re.match(r"I\w*?Li(\d+)E", mangled[end:])
+    if dmax:
+        dtype = "f32" if mangled[end + 1] == "f" else "bf16"
+        return f"{mangled[start:end]}<{dtype},{dmax.group(1)}>"
+    return f"{mangled[start:end]}<{mangled[end + 1:mangled.find('E', end)]}>"
+
+
+def ptxas_lines(log: str):
+    """(kernel, registers-and-spills line) for each kernel in an
+    ``-Xptxas -v`` log."""
+    name = "?"
+    for line in log.splitlines():
+        entry = re.search(r"Compiling entry function '(\w+)'", line)
+        if entry:
+            name = kernel_name(entry.group(1))
+        elif "registers" in line or "spill" in line:
+            yield name, line.strip()
+
+
 def tensor_core_check(build) -> dict:
     """HGMMA (wgmma) instructions per kernel of the built flash library,
     read from its SASS with ``cuobjdump``. Raises unless every bf16 K2 and
@@ -127,12 +156,8 @@ def tensor_core_check(build) -> dict:
         capture_output=True, text=True, timeout=300, check=True).stdout
     counts = {}
     for chunk in sass.split("Function : ")[1:]:
-        mangled = chunk.split("\n", 1)[0].strip()
-        kernel = re.search(r"\d+(flash_\w+?_kernel)I", mangled)
-        dmax = re.search(r"Li(\d+)E", mangled)
-        if kernel and dmax:
-            dtype = "f32" if "IfLi" in mangled else "bf16"
-            name = f"{kernel.group(1)}<{dtype},{dmax.group(1)}>"
+        name = kernel_name(chunk.split("\n", 1)[0].strip())
+        if name.startswith("flash_"):
             counts[name] = chunk.count("HGMMA")
     for name in WGMMA_KERNELS:
         check(counts.get(name, 0) > 0,
@@ -161,11 +186,27 @@ def time_ms(torch, fn) -> float:
     return statistics.median(s.elapsed_time(e) for s, e in ev)
 
 
-def flash_errors(torch, tfa, case, dtype, causal, seed) -> tuple:
+def lm_views(make, B, T, H, Hk, D):
+    """q, k, v as the LM block hands them to attention
+    (``minips_tpu_torch/models/transformer.py``): strided views of one fused
+    ``[B, T, 3, H*D]`` activation, or under GQA a q of its own and k, v
+    views of a fused ``[B, T, 2, Hk*D]``."""
+    if Hk == H:
+        qkv = make(B, T, 3, H * D)
+        return tuple(qkv[:, :, i].reshape(B, T, H, D) for i in range(3))
+    kv = make(B, T, 2, Hk * D)
+    return (make(B, T, H, D),) + tuple(
+        kv[:, :, i].reshape(B, T, Hk, D) for i in range(2))
+
+
+def flash_errors(torch, tfa, case, dtype, causal, seed,
+                 views=False) -> tuple:
     """K2 forward and K3/K4 (through the autograd op, with nonzero output
     and lse cotangents) on one case, each against its plain version on the
-    same inputs. Raises on a mismatch; returns each kernel's max |err| and
-    that error over max(1, max |plain|), the quantity the tolerance bounds."""
+    same inputs; with ``views`` q, k, v are the LM block's views of its fused
+    activation (Tq = Tk). Raises on a mismatch; returns each kernel's max
+    |err| and that error over max(1, max |plain|), the quantity the
+    tolerance bounds."""
     B, Tq, Tk, H, Hk, D, q_off, k_off = case
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(seed)
@@ -173,9 +214,13 @@ def flash_errors(torch, tfa, case, dtype, causal, seed) -> tuple:
     def rnd(*shape, dt=dtype):
         return torch.randn(shape, generator=gen, device=dev).to(dt)
 
-    q, k, v = (rnd(B, Tq, H, D).requires_grad_(True),
-               rnd(B, Tk, Hk, D).requires_grad_(True),
-               rnd(B, Tk, Hk, D).requires_grad_(True))
+    def leaf(*shape):
+        return rnd(*shape).requires_grad_(True)
+
+    if views:
+        q, k, v = lm_views(leaf, B, Tq, H, Hk, D)
+    else:
+        q, k, v = leaf(B, Tq, H, D), leaf(B, Tk, Hk, D), leaf(B, Tk, Hk, D)
     g_out, g_lse = rnd(B, Tq, H, D), rnd(B, H, Tq, 1, dt=torch.float32)
     scale = D ** -0.5
     before = (tfa.flash_forward.launches, tfa.flash_bwd_dq.launches,
@@ -297,9 +342,8 @@ def main() -> int:
     print(f"build: {build_s:.2f} s for {sorted(logs) or 'cached'}",
           flush=True)
     for name, log in logs.items():
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  ptxas {name}: {line.strip()}")
+        for kernel, line in ptxas_lines(log):
+            print(f"  ptxas {name} {kernel}: {line}")
     hgmma = tensor_core_check(_build)
     print("tensor cores: HGMMA instructions per flash kernel (SASS): "
           + json.dumps(hgmma), flush=True)
@@ -475,10 +519,18 @@ def main() -> int:
     LM_B, LM_T, LM_DIM, LM_DEPTH = 16, 1024, 2048, 8
     full = (LM_B, LM_T, LM_T, LM_DIM // 64, LM_DIM // 64, 64, 0, 0)
     record(*flash_errors(torch, tfa, full, torch.bfloat16, True, n_cases))
-    print(f"flash kernels: {n_cases + 1} cases against the plain versions "
+    # q/k/v as the LM block's views of its fused activation, read through
+    # the bf16 kernels' tensor maps at the activation's strides
+    view_cases = (full, (1, 192, 192, 8, 2, 64, 0, 0))
+    for i, case in enumerate(view_cases):
+        record(*flash_errors(torch, tfa, case, torch.bfloat16, True,
+                             n_cases + 1 + i, views=True))
+    n_cases += 1 + len(view_cases)
+    print(f"flash kernels: {n_cases} cases against the plain versions "
           "(f32 and bf16, causal and not, MHA/GQA g=4/MQA, offsets, ragged "
           "T=100/200/328, Tq=192 and 200 against the 128-row Q tile, D "
-          f"40/64/128, full width {full} bf16 causal), gradients "
+          f"40/64/128, full width {full} bf16 causal; bf16 causal q/k/v as "
+          f"views of the fused activation at {list(view_cases)}), gradients "
           f"with a nonzero lse cotangent; max |err| {flash_err}, over "
           f"max(1, max |value|) {flash_rel}; tolerance "
           f"{FLASH_TOL} of max(1, max |value|), lse {LSE_TOL}", flush=True)
@@ -646,8 +698,6 @@ def main() -> int:
         # it is in proportion to the work, 6 D against K4's 8 D per pair
         share = {"flash_forward": 1.0, "flash_bwd_dq": 6 / 14,
                  "flash_bwd_dkv": 8 / 14}[name]
-        extra = {"earlier_ms": EARLIER_MS[name]} if name in EARLIER_MS \
-            else {}
         kernels.append({
             "name": name, "route": "cuda",
             "source": "minips_tpu_torch/csrc/flash_attn.cu",
@@ -657,7 +707,7 @@ def main() -> int:
             "ms": ms, "plain_ms": plain, "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": lib,
-            "design": DESIGN[name], **extra,
+            "design": DESIGN[name],
             "tflops": flops[name] / ms / 1e9,
             "library_share_ms": None if lib is None else lib * share,
             "library_call": ("scaled_dot_product_attention(is_causal=True) "

@@ -1048,9 +1048,11 @@ EncodeTiled encode_tiled() {
 // tensor (D, H, T, B), in that order so that the byte strides grow, with a
 // box of (64, 1, rows, 1): `rows` rows of one head, 64 columns (one 128-byte
 // swizzle atom), 128B swizzle, zero fill outside the tensor. A dim of size 1
-// gets the stride of a dense layout (its coordinate is always 0). TMA needs
-// a 16-byte aligned base, unit stride along D and 16-byte multiples for the
-// other strides; the wrapper hands over only such tensors (tma_ready).
+// gets the stride of a dense layout (its coordinate is always 0). Which
+// tensors TMA can read as they lie is defined once, by tma_ready in
+// ops/flash_attention.py, and the wrapper hands over only those; the checks
+// below merely assert that rule, failing the launch instead of building a
+// wrong map if the two ever disagree.
 cudaError_t make_map(CUtensorMap* map, const void* x, const long long* st,
                      int B, int T, int H, int D, int rows) {
   const EncodeTiled fn = encode_tiled();

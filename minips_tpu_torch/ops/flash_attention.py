@@ -283,7 +283,10 @@ def tma_ready(t: torch.Tensor) -> bool:
     multiples for the other strides, and strides growing from H to T to B
     over the dims longer than 1 (the order of the kernels' tensor map). The
     LM's q/k/v, strided views of the fused ``qkv`` activation, pass as they
-    are; a tensor that fails goes to the kernel as a contiguous copy."""
+    are; a tensor that fails goes to the kernel as a contiguous copy. This
+    is the one definition of the rule: ``make_map`` in ``csrc/flash_attn.cu``
+    builds the map of a tensor that passes and only asserts the rule again
+    (a launch that breaks it fails rather than reading a wrong map)."""
     item = t.element_size()
     if t.stride(3) != 1 or t.data_ptr() % 16:
         return False

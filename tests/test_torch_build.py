@@ -19,12 +19,16 @@ def csrc(tmp_path, monkeypatch):
     return src
 
 
-@pytest.mark.parametrize("edit", ["source", "header", "new header"])
+@pytest.mark.parametrize("edit", ["source", "header", "new header",
+                                  "removed header"])
 def test_library_path_follows_source_and_headers(csrc, edit):
     before = _build.library_path("k")
-    target = {"source": "k.cu", "header": "a.cuh",
-              "new header": "b.cuh"}[edit]
-    (csrc / target).write_text("// edited\n")
+    if edit == "removed header":
+        (csrc / "a.cuh").unlink()
+    else:
+        target = {"source": "k.cu", "header": "a.cuh",
+                  "new header": "b.cuh"}[edit]
+        (csrc / target).write_text("// edited\n")
     after = _build.library_path("k")
     assert after != before and after.parent == before.parent
     assert after.name.startswith("libk-") and after.suffix == ".so"
@@ -36,9 +40,3 @@ def test_library_path_is_stable_and_ignores_other_files(csrc):
     (csrc / "other.cu").write_text("// another kernel\n")
     assert _build.library_path("k") == before
 
-
-def test_package_headers_enter_the_flash_library_hash():
-    assert (_build.CSRC / "hopper.cuh").exists()
-    assert '#include "hopper.cuh"' in (
-        _build.CSRC / "flash_attn.cu").read_text()
-    assert _build.library_path("flash_attn").name.startswith("libflash_attn-")

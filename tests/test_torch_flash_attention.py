@@ -244,17 +244,28 @@ def _bf16(*shape):
         shape).to(torch.bfloat16)
 
 
+def _lm_views(make, B, T, H, Hk, D):
+    """q, k, v as the LM block hands them over (``models/transformer.py``):
+    strided views of one fused ``[B, T, 3, H·D]`` activation, or under GQA
+    a q of its own and k, v views of a fused ``[B, T, 2, Hk·D]``."""
+    if Hk == H:
+        qkv = make(B, T, 3, H * D)
+        return tuple(qkv[:, :, i].reshape(B, T, H, D) for i in range(3))
+    kv = make(B, T, 2, Hk * D)
+    return (make(B, T, H, D),) + tuple(
+        kv[:, :, i].reshape(B, T, Hk, D) for i in range(2))
+
+
 def _qkv_view(B=2, T=16, H=4, D=64):
-    """q, k, v as the LM block hands them over: strided views of one fused
-    ``[B, T, 3, H·D]`` activation."""
-    qkv = _bf16(B, T, 3, H * D)
-    return tuple(qkv[:, :, i].reshape(B, T, H, D) for i in range(3))
+    return _lm_views(_bf16, B, T, H, H, D)
 
 
 @pytest.mark.parametrize("make,ready", [
     (lambda: _bf16(2, 16, 4, 64), True),                      # contiguous
     (lambda: _qkv_view()[0], True),                           # fused qkv: q
+    (lambda: _qkv_view()[1], True),                           # ... k
     (lambda: _qkv_view()[2], True),                           # ... and v
+    (lambda: _lm_views(_bf16, 2, 16, 4, 2, 64)[2], True),     # GQA's kv: v
     (lambda: _bf16(2, 4, 16, 64).transpose(1, 2), False),     # [B, H, T, D]
     (lambda: _bf16(2, 16, 4, 128)[..., ::2], False),          # D stride 2
     (lambda: _bf16(4 * 64 + 8)[8:].reshape(1, 4, 1, 64), True),   # base + 16B
@@ -274,15 +285,6 @@ def test_tma_ready_predicate(make, ready):
     (y,) = tfa._for_tma(x)
     assert (y is x) is ready
     assert tfa.tma_ready(y) and torch.equal(y, x)
-
-
-def test_for_tma_keeps_ready_views_and_copies_the_rest():
-    q, k, v = _qkv_view(1, 8, 2, 64)
-    t = _bf16(1, 2, 8, 64).transpose(1, 2)
-    got = tfa._for_tma(q, k, v, t)
-    assert got[0] is q and got[1] is k and got[2] is v
-    assert got[3] is not t and got[3].is_contiguous()
-    assert torch.equal(got[3], t)
 
 
 # ------------------------------------------------------------- on the card
@@ -312,21 +314,27 @@ def _norm_err(got, want):
     (2, 1, 70, 4, 2, 8, 69, 0),         # one query row at the end, D = 8
     (1, 130, 130, 2, 1, 72, 0, 0),      # D = 72: a second atom 8 wide
     (1, 64, 256, 4, 2, 64, 0, 192),     # causal rows that see no key
+    # q, k, v as the LM block makes them: views of the fused activation
+    (16, 1024, 1024, 32, 32, 64, 0, 0, "lm_views"),
+    (1, 192, 192, 8, 2, 64, 0, 0, "lm_views"),
 ])
 def test_kernels_match_plain_versions_on_card(cuda_device, shape, causal,
                                               dtype):
     """K2, K3, K4 against their plain versions: float32 to 1e-4 and
     bfloat16 to 2^-7 of max(1, max |value|) (the rounding points are
     shared; only the f32 summation order differs)."""
-    B, Tq, Tk, H, Hk, D, q_off, k_off = shape
+    B, Tq, Tk, H, Hk, D, q_off, k_off, *layout = shape
     tol = 1e-4 if dtype == torch.float32 else 2.0 ** -7
     gen = torch.Generator(device=cuda_device).manual_seed(0)
 
     def rnd(*s):
         return torch.randn(s, generator=gen, device=cuda_device).to(dtype)
 
-    q, k, v, do = rnd(B, Tq, H, D), rnd(B, Tk, Hk, D), rnd(B, Tk, Hk, D), \
-        rnd(B, Tq, H, D)
+    if layout:
+        q, k, v = _lm_views(rnd, B, Tq, H, Hk, D)
+    else:
+        q, k, v = rnd(B, Tq, H, D), rnd(B, Tk, Hk, D), rnd(B, Tk, Hk, D)
+    do = rnd(B, Tq, H, D)
     args = dict(causal=causal, scale=D ** -0.5)
     before = tfa.flash_forward.launches
     out, lse = tfa.flash_forward(q, k, v, q_off, k_off, **args)
@@ -366,6 +374,43 @@ def test_bf16_views_tma_cannot_read_go_as_copies_on_card(cuda_device, view):
         q = rnd(B * T * H * D + 1)[1:].reshape(B, T, H, D)
     assert not tfa.tma_ready(q)
     k, v, do = rnd(B, T, Hk, D), rnd(B, T, Hk, D), rnd(B, T, H, D)
+    args = dict(causal=True, scale=D ** -0.5)
+    out, lse = tfa.flash_forward(q, k, v, **args)
+    ref, rlse = tfa.flash_forward_reference(q, k, v, **args)
+    dvec = (do.float() * ref.float()).sum(-1).transpose(1, 2)[..., None]
+    dq = tfa.flash_bwd_dq(q, k, v, do, rlse, dvec, **args)
+    torch.cuda.synchronize()
+    assert _norm_err(out, ref) <= 2.0 ** -7
+    assert float((lse - rlse).abs().max()) <= 1e-4
+    assert _norm_err(dq, tfa.flash_bwd_dq_reference(
+        q, k, v, do, rlse, dvec, **args)) <= 2.0 ** -7
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("view", ["lm_views", "size_one_dims", "base_16"])
+def test_tma_ready_views_launch_as_they_lie_on_card(cuda_device, view):
+    """Views that :func:`tma_ready` passes go to K2 and K3 uncopied, and the
+    kernels' own tensor maps (``make_map``) take them: the launch succeeds
+    and agrees with the plain versions to 2^-7 of max(1, max |value|), lse
+    to 1e-4. This holds the C++ map builder to the Python rule."""
+    gen = torch.Generator(device=cuda_device).manual_seed(2)
+
+    def rnd(*s):
+        return torch.randn(s, generator=gen, device=cuda_device).to(
+            torch.bfloat16)
+
+    T, D = 160, 64
+    if view == "lm_views":
+        q, k, v = _lm_views(rnd, 2, T, 4, 2, D)
+    elif view == "size_one_dims":  # B = H = 1 with strides TMA never reads
+        q, k, v = (rnd(T * 72 + 8).as_strided((1, T, 1, D), (5, 72, 3, 1))
+                   for _ in range(3))
+    else:  # a base 16 bytes past an allocation's start
+        q, k, v = (rnd(T * 2 * D + 8)[8:].reshape(1, T, 2, D)
+                   for _ in range(3))
+    assert all(tfa.tma_ready(x) for x in (q, k, v))
+    assert all(a is b for a, b in zip(tfa._for_tma(q, k, v), (q, k, v)))
+    do = rnd(*q.shape)
     args = dict(causal=True, scale=D ** -0.5)
     out, lse = tfa.flash_forward(q, k, v, **args)
     ref, rlse = tfa.flash_forward_reference(q, k, v, **args)
