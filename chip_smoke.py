@@ -16,9 +16,11 @@ Adam, flash attention, head chunks of 128). Phases, each of which raises
 on failure:
 
 1. device: requires CUDA; prints the card's name and power limit;
-2. build: compiles every kernel, all sources at once, and times it; then
-   reads the built flash library's SASS (``cuobjdump``) and requires
-   tensor-core instructions (``HGMMA``) in the bf16 K2 and K3 kernels;
+2. build: compiles every kernel, all sources at once, and times it;
+   requires no register spills in the bf16 flash kernels at head dims up
+   to 64 (the LM's); then reads the built flash library's SASS
+   (``cuobjdump``) and requires tensor-core instructions (``HGMMA``) in the
+   bf16 K2, K3 and K4 kernels;
 3. kernels: the row gather against its plain PyTorch version on the card
    (bit-exact);
 4. hash: the key hash on the card, bit-identical to its numpy twin;
@@ -27,10 +29,12 @@ on failure:
    from the same weights, and the step time on the card;
 6. pull: ``SparseTable.pull`` through the kernel at D = 8 and D = 128;
 7. flash kernels: K2, K3 and K4 against their plain versions (f32 and
-   bf16, causal and not, GQA, global offsets, ragged T, Tq not a multiple
-   of the bf16 kernels' 128-row Q tile, the full-width shape, q/k/v as
-   the LM block's strided views of its fused activation), the gradients
-   through the autograd op with a nonzero lse cotangent;
+   bf16, causal and not, GQA, global offsets, ragged T, Tq and Tk not
+   multiples of the bf16 kernels' 128-row tiles, causal keys that no query
+   sees, D = 72, the full-width shape, q/k/v as the LM block's strided
+   views of its fused activation), the gradients through the autograd op
+   with a nonzero lse cotangent; keys that no query sees get dK = dV = 0
+   exactly, and two K4 launches agree to the bit;
 8. LM path: 10 steps at full width, with finite and falling loss, each
    flash kernel launched once per block per step, step time, tokens/s and
    the profiler's idle share; the first 3 steps of a small LM on the card
@@ -88,12 +92,15 @@ LSE_TOL = 1e-4  # lse is float32 on both sides
 # peak rates of an H100 SXM (NVIDIA data sheet): dense bf16 tensor cores
 BF16_FLOPS = 989e12
 DESIGN = {"gather_rows": "simt", "flash_forward": "wgmma",
-          "flash_bwd_dq": "wgmma", "flash_bwd_dkv": "simt"}
-# the bf16 K2 and K3 kernels, each of which must hold HGMMA instructions
+          "flash_bwd_dq": "wgmma", "flash_bwd_dkv": "wgmma"}
+# the bf16 K2, K3 and K4 kernels, each of which must hold HGMMA
+# instructions; those at head dims up to 64 (the LM's) must not spill
 WGMMA_KERNELS = ("flash_fwd_wgmma_kernel<bf16,64>",
                  "flash_fwd_wgmma_kernel<bf16,128>",
                  "flash_bwd_dq_wgmma_kernel<bf16,64>",
-                 "flash_bwd_dq_wgmma_kernel<bf16,128>")
+                 "flash_bwd_dq_wgmma_kernel<bf16,128>",
+                 "flash_bwd_dkv_wgmma_kernel<bf16,64>",
+                 "flash_bwd_dkv_wgmma_kernel<bf16,128>")
 # Device memory rate by card, bytes/s (NVIDIA data sheets); the H100 SXM's
 # 3.35 TB/s unless the name says otherwise.
 MEM_BW = (("H100 PCIe", 2.0e12), ("H100 NVL", 3.9e12), ("H200", 4.8e12),
@@ -135,8 +142,9 @@ def kernel_name(mangled: str) -> str:
 
 
 def ptxas_lines(log: str):
-    """(kernel, registers-and-spills line) for each kernel in an
-    ``-Xptxas -v`` log."""
+    """(kernel, line) for each registers-and-spills line of an ``-Xptxas
+    -v`` log, and ("ptxas", line) for each performance warning (a wgmma
+    serialized for want of registers, say), which names its kernel."""
     name = "?"
     for line in log.splitlines():
         entry = re.search(r"Compiling entry function '(\w+)'", line)
@@ -144,12 +152,24 @@ def ptxas_lines(log: str):
             name = kernel_name(entry.group(1))
         elif "registers" in line or "spill" in line:
             yield name, line.strip()
+        elif "Performance Loss" in line:
+            yield "ptxas", line.strip()
+
+
+def spill_check(log: str) -> None:
+    """Raise if a bf16 flash kernel at head dims up to 64 spills."""
+    for name, line in ptxas_lines(log):
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", line)
+        if name in WGMMA_KERNELS and name.endswith(",64>") and spill:
+            check(spill.group(1) == spill.group(2) == "0",
+                  f"{name} spills registers: {line}")
 
 
 def tensor_core_check(build) -> dict:
     """HGMMA (wgmma) instructions per kernel of the built flash library,
-    read from its SASS with ``cuobjdump``. Raises unless every bf16 K2 and
-    K3 kernel holds some."""
+    read from its SASS with ``cuobjdump``. Raises unless every bf16 K2, K3
+    and K4 kernel holds some."""
     cuobjdump = os.path.join(os.path.dirname(build._nvcc()), "cuobjdump")
     sass = subprocess.run(
         [cuobjdump, "--dump-sass", str(build.library_path("flash_attn"))],
@@ -204,9 +224,10 @@ def flash_errors(torch, tfa, case, dtype, causal, seed,
     """K2 forward and K3/K4 (through the autograd op, with nonzero output
     and lse cotangents) on one case, each against its plain version on the
     same inputs; with ``views`` q, k, v are the LM block's views of its fused
-    activation (Tq = Tk). Raises on a mismatch; returns each kernel's max
-    |err| and that error over max(1, max |plain|), the quantity the
-    tolerance bounds."""
+    activation (Tq = Tk). Raises on a mismatch, on nonzero dK or dV for
+    keys that no query sees, or on two K4 launches that differ; returns
+    each kernel's max |err| and that error over max(1, max |plain|), the
+    quantity the tolerance bounds."""
     B, Tq, Tk, H, Hk, D, q_off, k_off = case
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(seed)
@@ -242,6 +263,18 @@ def flash_errors(torch, tfa, case, dtype, causal, seed,
                                      k_off, **kw)
     rdk, rdv = tfa.flash_bwd_dkv_reference(q, k, v, g_out, lse, dvec, q_off,
                                            k_off, **kw)
+    # K4 sums each kv head's q heads in a fixed order with no atomics: two
+    # more launches on the same inputs agree to the bit
+    again = [tfa.flash_bwd_dkv(q, k, v, g_out, lse, dvec, q_off, k_off, **kw)
+             for _ in range(2)]
+    check(all(torch.equal(a, b) for a, b in zip(*again)),
+          f"two K4 launches on the same inputs differ: case {case} {dtype}")
+    # keys from k_off + j > q_off + Tq - 1 on see no query under the causal
+    # mask: exactly zero, as the TPU kernel and the plain version give
+    unseen = min(max(q_off + Tq - k_off, 0), Tk) if causal else Tk
+    check(bool((dk[:, unseen:] == 0).all() and (dv[:, unseen:] == 0).all()),
+          f"flash_bwd_dkv: keys {unseen}.. that no query sees got nonzero "
+          f"dK or dV: case {case} {dtype}")
     tol = FLASH_TOL[str(dtype).split(".")[-1]]
     errs, rels = {}, {}
     for kernel, pairs in (("flash_forward", ((out, ref),)),
@@ -344,6 +377,8 @@ def main() -> int:
     for name, log in logs.items():
         for kernel, line in ptxas_lines(log):
             print(f"  ptxas {name} {kernel}: {line}")
+    if "flash_attn" in logs:
+        spill_check(logs["flash_attn"])
     hgmma = tensor_core_check(_build)
     print("tensor cores: HGMMA instructions per flash kernel (SASS): "
           + json.dumps(hgmma), flush=True)
@@ -507,7 +542,13 @@ def main() -> int:
         # warpgroup's rows end inside their tile
         (1, 192, 192, 8, 2, 64, 0, 0),       # GQA g = 4, D = 64
         (1, 192, 192, 8, 2, 128, 0, 0),      # GQA g = 4, D = 128
-        (2, 200, 328, 4, 2, 64, 128, 0),     # ragged Tq and Tk, offsets
+        # ragged Tq and Tk, offsets; the last 128-row K tile of the bf16 K4
+        # ends inside its second warpgroup
+        (2, 200, 328, 4, 2, 64, 128, 0),
+        # Tk > Tq, no offset: under the causal mask K4's K tiles 1 and 2 see
+        # no query (dK = dV = 0)
+        (1, 128, 384, 8, 2, 64, 0, 0),
+        (1, 130, 130, 2, 1, 72, 0, 0),       # D = 72: a second atom 8 wide
     ]
     n_cases = 0
     for dtype in (torch.float32, torch.bfloat16):
@@ -528,12 +569,14 @@ def main() -> int:
     n_cases += 1 + len(view_cases)
     print(f"flash kernels: {n_cases} cases against the plain versions "
           "(f32 and bf16, causal and not, MHA/GQA g=4/MQA, offsets, ragged "
-          "T=100/200/328, Tq=192 and 200 against the 128-row Q tile, D "
-          f"40/64/128, full width {full} bf16 causal; bf16 causal q/k/v as "
-          f"views of the fused activation at {list(view_cases)}), gradients "
-          f"with a nonzero lse cotangent; max |err| {flash_err}, over "
-          f"max(1, max |value|) {flash_rel}; tolerance "
-          f"{FLASH_TOL} of max(1, max |value|), lse {LSE_TOL}", flush=True)
+          "T=100/130/200/328, Tq=192 and 200 against the 128-row Q tile, "
+          "Tk=384 > Tq=128 causal, D 40/64/72/128, full width "
+          f"{full} bf16 causal; bf16 causal q/k/v as views of the fused "
+          f"activation at {list(view_cases)}), gradients with a nonzero lse "
+          f"cotangent; max |err| {flash_err}, over max(1, max |value|) "
+          f"{flash_rel}; tolerance {FLASH_TOL} of max(1, max |value|), lse "
+          f"{LSE_TOL}; keys no query sees got dK = dV = 0 exactly; two more "
+          "K4 launches bit-identical in every case", flush=True)
 
     # ------------------------------------------------------------ 8. LM path
     torch.cuda.reset_peak_memory_stats()

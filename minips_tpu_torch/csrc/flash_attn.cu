@@ -17,13 +17,14 @@
 // element is written once by one block: no atomics, and the sums run in a
 // fixed order.
 //
-// What bounds K2 and K3 on this card: at the LM's shape (T = 1024, head dim
-// 64, causal) K2 does 4 D = 256 flops and K3 6 D = 384 flops per live
-// (query, key) pair against ~4 T D bytes per (batch, head), 68.8 and 103.2
-// GFLOP against 270 and 340 MB at B 16 x 32 heads: ~250 and ~300 flops per
-// byte, at the H100's ridge (989 TFLOP/s over 3.35 TB/s, ~295). The bf16
-// tensor cores bound them, and behind them the special-function unit: one
-// exp per pair costs as many SM cycles as the 4 D flops of K2's products.
+// What bounds them on this card: at the LM's shape (T = 1024, head dim 64,
+// causal) K2 does 4 D = 256, K3 6 D = 384 and K4 8 D = 512 flops per live
+// (query, key) pair against ~4 T D bytes per (batch, head), 68.8, 103.2 and
+// 137.6 GFLOP against 270, 340 and 407 MB at B 16 x 32 heads: ~250 to ~340
+// flops per byte, at the H100's ridge (989 TFLOP/s over 3.35 TB/s, ~295).
+// The bf16 tensor cores bound them, and behind them the special-function
+// unit: one exp per pair costs as many SM cycles as the 4 D flops of K2's
+// products.
 //
 // bf16 K2 and K3 (flash_fwd_wgmma_kernel, flash_bwd_dq_wgmma_kernel) are
 // built for that:
@@ -52,13 +53,24 @@
 //     applied only on tiles that cross the diagonal or the ragged K tail, and
 //     Q tiles launch longest first (grid z reversed), so short causal rows
 //     fill the tail of the grid.
+// bf16 K4 (flash_bwd_dkv_wgmma_kernel) is K3 on the transposed sweep, with
+// the same block, ring and helpers: a 128-row K tile per block, K and V
+// resident, 64-row Q and dO tiles of each (q head of the group, live Q
+// tile) pair streamed through the stages; s^T = K Q^T and dp^T = V dO^T
+// with keys as rows, so p^T and ds^T are the register A operands of
+// dV += p^T dO and dK += ds^T Q (Q and dO read MN-major), and dK and dV
+// stay in registers over the whole sweep. The per-query terms (-lse log2(e)
+// and dvec) ride in each stage beside Q and dO, copied by the producer
+// warp's lanes. The live Q tiles of a key start at the causal diagonal, so
+// the sweep skips its head, not its tail; K tile 0 sees the most and
+// launches first. A block that no query sees runs no tile and writes zeros.
 // f32 inputs keep the first SIMT kernels (flash_fwd_kernel,
-// flash_bwd_dq_kernel): wgmma on f32 would be TF32, three decimal digits,
-// which would miss the f32 tolerance of 1e-4 against the plain versions;
-// the main path never sends f32 here. K4 (flash_bwd_dkv_kernel) is the first
-// SIMT version in both types: 64 x 64 tiles in shared memory held as f32,
-// 256 threads each owning a 4 x 4 micro-tile, dots as f32 FMAs, so the FMA
-// pipes and shared-memory loads bound it.
+// flash_bwd_dq_kernel, flash_bwd_dkv_kernel): wgmma on f32 would be TF32,
+// three decimal digits, which would miss the f32 tolerance of 1e-4 against
+// the plain versions; the main path never sends f32 here. They stage
+// 64 x 64 tiles in shared memory as f32, 256 threads each owning a 4 x 4
+// micro-tile, dots as f32 FMAs, so the FMA pipes and shared-memory loads
+// bound them.
 //
 // Numerics follow the TPU kernels so that the plain PyTorch versions in
 // ops/flash_attention.py can be held tight:
@@ -74,7 +86,7 @@
 //   - K tiles the causal mask kills entirely are skipped (_block_live).
 // Inputs are read in the [B, T, H, D] layout through the strides passed
 // in, so no transpose is materialised; q head h reads kv head h / g, so the
-// GQA repeat is never materialised (the bf16 K2/K3 read them through TMA
+// GQA repeat is never materialised (the bf16 kernels read them through TMA
 // maps built per launch from the same pointers and strides). Any Tq and Tk;
 // any D that is a multiple of 8 up to 128. The K tile is 64 rows everywhere,
 // the plain forward's online-softmax tile on the card (KERNEL_BLOCK), so
@@ -111,17 +123,12 @@ struct Dims {
   long long sq[4], sk[4], sv[4], sdo[4];
 };
 
+// The SIMT kernels below are written for an input type T but instantiated
+// for float alone (bf16 takes the wgmma kernels), so only float converts.
 __device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 template <typename T> __device__ __forceinline__ T from_f(float x);
 template <> __device__ __forceinline__ float from_f<float>(float x) {
   return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);  // round to nearest even, as torch's .to()
 }
 // the value x takes once rounded to the input type
 template <typename T> __device__ __forceinline__ float round_to(float x) {
@@ -517,11 +524,14 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-// ----------------------------------------------- K2 and K3 on bf16: wgmma
+// ------------------------------------------ K2, K3 and K4 on bf16: wgmma
 namespace wg {
 
-constexpr int kQRows = 128;    // Q tile: two consumer warpgroups of 64 rows
-constexpr int kKRows = kBlock;  // K / V tile rows (KERNEL_BLOCK in Python)
+// the resident tile (Q in K2/K3, K and V in K4): two consumer warpgroups of
+// 64 rows each
+constexpr int kQRows = 128;
+// the streamed tiles (K and V in K2/K3, Q and dO in K4): KERNEL_BLOCK rows
+constexpr int kKRows = kBlock;
 constexpr int kConsumers = 256;
 constexpr int kThreads = kConsumers + 32;  // + the producer warp
 constexpr int kRow = 128;  // bytes of one swizzled row: 64 bf16
@@ -530,10 +540,11 @@ constexpr float kLog2e = 1.4426950408889634f;
 template <int DMAX> struct Cfg {
   static constexpr int kAtoms = DMAX / 64;  // 64-column swizzle atoms
   static constexpr int kStages = DMAX == 64 ? 3 : 2;
-  static constexpr int kQBytes = kAtoms * kQRows * kRow;   // Q or dO tile
-  static constexpr int kKBytes = kAtoms * kKRows * kRow;   // K or V tile
-  static constexpr int kStageBytes = 2 * kKBytes;          // K then V
-  // + the barriers, + slack to align the base to 1024 bytes
+  static constexpr int kQBytes = kAtoms * kQRows * kRow;   // a resident tile
+  static constexpr int kKBytes = kAtoms * kKRows * kRow;   // a streamed tile
+  static constexpr int kStageBytes = 2 * kKBytes;  // K then V, or Q then dO
+  // q_tiles resident tiles and the stages, + the barriers, + slack to
+  // align the base to 1024 bytes
   static constexpr int smem(int q_tiles) {
     return 1024 + q_tiles * kQBytes + kStages * kStageBytes +
            8 * (1 + 2 * kStages);
@@ -580,7 +591,8 @@ __device__ __forceinline__ void to_a_operand(const float (&x)[32],
 }
 
 // acc = the rows [64 w, 64 w + 64) of tile A times tile B^T over DMAX,
-// both from shared memory, K-major: A has kQRows rows per atom, B kKRows
+// both from shared memory, K-major: A (the block's resident tile) has
+// kQRows rows per atom, B (a streamed tile) kKRows
 template <int DMAX>
 __device__ __forceinline__ void product_ss(float (&acc)[32], const uint8_t* A,
                                            int w, const uint8_t* B) {
@@ -595,8 +607,9 @@ __device__ __forceinline__ void product_ss(float (&acc)[32], const uint8_t* A,
   }
 }
 
-// acc[atom] += a (register A operand, 64 keys wide) times the tile B read
-// MN-major from shared memory: P V in K2, dS K in K3
+// acc[atom] += a (register A operand, 64 columns wide) times the streamed
+// tile B read MN-major from shared memory: P V in K2, dS K in K3, P^T dO
+// and dS^T Q in K4
 template <int DMAX>
 __device__ __forceinline__ void product_rs(float (&acc)[DMAX / 64][32],
                                            const uint32_t (&a)[4][4],
@@ -613,16 +626,18 @@ __device__ __forceinline__ void product_rs(float (&acc)[DMAX / 64][32],
                                                     kRow));
 }
 
-// the block's barriers: Q (and dO) loaded; stage s full; stage s released
-// by every consumer warp
+// the block's barriers: the resident tiles loaded; stage s full (after
+// full_arrivals producer threads arrive and TMA's bytes land); stage s
+// released by every consumer warp
 template <int S>
 __device__ __forceinline__ void init_barriers(uint64_t* q_full,
                                               uint64_t* full,
-                                              uint64_t* empty) {
+                                              uint64_t* empty,
+                                              int full_arrivals = 1) {
   if (threadIdx.x == 0) {
     hopper::mbar_init(q_full, 1);
     for (int s = 0; s < S; ++s) {
-      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&full[s], full_arrivals);
       hopper::mbar_init(&empty[s], kConsumers / 32);
     }
     hopper::mbar_fence_init();
@@ -668,6 +683,59 @@ __device__ __forceinline__ void produce_kv(const CUtensorMap* mk,
                           t * kKRows, b);
       hopper::tma_load_4d(Vs + a * kKRows * kRow, mv, &full[s], 64 * a, hk,
                           t * kKRows, b);
+    }
+  }
+}
+
+// K4: the first 64-row Q tile that key rows [r0, r0 + 64) see, or nq if
+// none does. Under the causal mask the live Q tiles of a key run from the
+// diagonal to the end; keys past Tk see nothing (they are never stored).
+__device__ __forceinline__ int first_q_tile(const Dims& p, int r0, int nq) {
+  if (r0 >= p.Tk) return nq;
+  if (!p.causal) return 0;
+  const int qi = p.k_off + r0 - p.q_off;  // the first query that sees key r0
+  return qi >= p.Tq ? nq : max(qi, 0) / kKRows;
+}
+
+// K4's producer loop, run by every lane of the producer warp: tile t of the
+// sweep (q head hk g + t / per of the group, Q tile first + t % per) into
+// stage t % S once the consumers have released it. Lane 0 starts the TMA
+// loads of Q and dO; beside them each lane copies two rows' per-query
+// terms, -lse log2(e) and dvec, into `rows` (-inf and 0 past Tq, which makes
+// p and ds of a query past Tq exactly 0: TMA zero-fills its Q and dO, but
+// exp(0 - lse) is not 0). Every lane arrives on the stage's "full" barrier
+// after its stores, lane 0 with the TMA byte count.
+template <int DMAX>
+__device__ __forceinline__ void produce_qdo(
+    const CUtensorMap* mq, const CUtensorMap* mdo, uint8_t* QO, float* rows,
+    const float* __restrict__ lse, const float* __restrict__ dvec,
+    uint64_t* full, uint64_t* empty, const Dims& p, int n_tiles, int first,
+    int per, int hk, int b, int lane) {
+  using C = Cfg<DMAX>;
+  for (int t = 0; t < n_tiles; ++t) {
+    const int s = t % C::kStages;
+    if (t >= C::kStages) hopper::mbar_wait(&empty[s], (t / C::kStages - 1) & 1);
+    const int h = hk * p.g + t / per, q0 = (first + t % per) * kKRows;
+    float* r = rows + s * 2 * kKRows;
+    for (int i = lane; i < kKRows; i += 32) {
+      const int qi = q0 + i;
+      const long long at = (static_cast<long long>(b) * p.H + h) * p.Tq + qi;
+      r[i] = qi < p.Tq ? -lse[at] * kLog2e : -INFINITY;
+      r[kKRows + i] = qi < p.Tq ? dvec[at] : 0.f;
+    }
+    if (lane != 0) {
+      hopper::mbar_arrive(&full[s]);
+      continue;
+    }
+    uint8_t* Qs = QO + s * C::kStageBytes;
+    uint8_t* Os = Qs + C::kKBytes;
+    hopper::mbar_arrive_expect_tx(&full[s], C::kStageBytes);
+#pragma unroll
+    for (int a = 0; a < C::kAtoms; ++a) {
+      hopper::tma_load_4d(Qs + a * kKRows * kRow, mq, &full[s], 64 * a, h, q0,
+                          b);
+      hopper::tma_load_4d(Os + a * kKRows * kRow, mdo, &full[s], 64 * a, h,
+                          q0, b);
     }
   }
 }
@@ -924,6 +992,146 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap mq,
   }
 }
 
+// ------------------------------------------------------- K4, bf16, wgmma
+// K3 transposed: a block owns a 128-row K tile of one kv head (K and V
+// resident, in the role Q and dO have in K3) and streams the 64-row Q and
+// dO tiles of every (q head of the group, live Q tile) pair through the
+// stages. Scores are formed transposed, keys as rows: s^T = K Q^T and
+// dp^T = V dO^T, so p^T and ds^T come out of the accumulator as the register
+// A operands of dV += p^T dO and dK += ds^T Q, and the per-query terms
+// (lse, dvec) belong to the accumulator's columns.
+template <int DMAX>
+__global__ void __launch_bounds__(wg::kThreads, 1)
+flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap mq,
+                           const __grid_constant__ CUtensorMap mk,
+                           const __grid_constant__ CUtensorMap mv,
+                           const __grid_constant__ CUtensorMap mdo,
+                           const float* __restrict__ lse,
+                           const float* __restrict__ dvec,
+                           __nv_bfloat16* __restrict__ dk,
+                           __nv_bfloat16* __restrict__ dv, Dims p) {
+  using C = wg::Cfg<DMAX>;
+  constexpr int NA = C::kAtoms, S = C::kStages, QR = wg::kKRows;
+  extern __shared__ uint8_t wg_smem[];
+  uint8_t* Ks = wg::align1024(wg_smem);
+  uint8_t* Vs = Ks + C::kQBytes;
+  uint8_t* QO = Vs + C::kQBytes;  // stage s: its Q tile, then its dO tile
+  float* rows = reinterpret_cast<float*>(QO + S * C::kStageBytes);
+  uint64_t* kv_full = reinterpret_cast<uint64_t*>(rows + S * 2 * QR);
+  uint64_t* full = kv_full + 1;
+  uint64_t* empty = full + S;
+
+  // K tiles in launch order: tile 0, which sees the most Q tiles, first
+  const int hk = blockIdx.x, b = blockIdx.y, k0 = blockIdx.z * wg::kQRows;
+  const int nq = (p.Tq + QR - 1) / QR;
+  const int first = wg::first_q_tile(p, k0, nq), per = nq - first;
+  const int n_tiles = p.g * per;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  wg::init_barriers<S>(kv_full, full, empty, 32);
+
+  if (warp == wg::kConsumers / 32) {  // ---- producer
+    if (n_tiles == 0) return;
+    if (lane == 0) {
+      hopper::tma_prefetch_map(&mq);
+      hopper::tma_prefetch_map(&mdo);
+      hopper::tma_prefetch_map(&mk);
+      hopper::tma_prefetch_map(&mv);
+      hopper::mbar_arrive_expect_tx(kv_full, 2 * C::kQBytes);
+      for (int a = 0; a < NA; ++a) {
+        hopper::tma_load_4d(Ks + a * wg::kQRows * wg::kRow, &mk, kv_full,
+                            64 * a, hk, k0, b);
+        hopper::tma_load_4d(Vs + a * wg::kQRows * wg::kRow, &mv, kv_full,
+                            64 * a, hk, k0, b);
+      }
+    }
+    wg::produce_qdo<DMAX>(&mq, &mdo, QO, rows, lse, dvec, full, empty, p,
+                          n_tiles, first, per, hk, b, lane);
+    return;
+  }
+
+  // ---- consumers: warpgroup w owns key rows [r0, r0 + 64). A block with
+  // no live tile runs no iteration and still writes its zeros below.
+  const int w = warp / 4, wi = warp % 4;
+  const int r0 = k0 + 64 * w;
+  const int mine = wg::first_q_tile(p, r0, nq);
+  const int row_a = r0 + 16 * wi + lane / 4;  // and row_a + 8
+  const int col_t = 2 * (lane % 4);
+  const float sl2 = p.scale * wg::kLog2e;
+  float dkacc[NA][32], dvacc[NA][32], sacc[32], dpacc[32];
+#pragma unroll
+  for (int a = 0; a < NA; ++a)
+#pragma unroll
+    for (int r = 0; r < 32; ++r) dkacc[a][r] = dvacc[a][r] = 0.f;
+  if (n_tiles > 0) hopper::mbar_wait(kv_full, 0);
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const int s = t % S, qt = first + t % per;
+    hopper::mbar_wait(&full[s], (t / S) & 1);
+    if (qt >= mine) {  // warpgroup 1 may start one Q tile later
+      const uint8_t* Qs = QO + s * C::kStageBytes;
+      const uint8_t* Os = Qs + C::kKBytes;
+      wg::product_ss<DMAX>(sacc, Ks, w, Qs);
+      wg::product_ss<DMAX>(dpacc, Vs, w, Os);
+      hopper::wgmma_commit();
+      hopper::wgmma_wait0();
+      hopper::fence_regs(sacc);
+      hopper::fence_regs(dpacc);
+
+      // the causal mask, only on tiles that cross the diagonal; queries
+      // past Tq need none (their -lse is -inf), keys past Tk are not stored
+      const int q0 = qt * QR;
+      if (p.causal && p.q_off + q0 < p.k_off + r0 + 63) {
+#pragma unroll
+        for (int r = 0; r < 32; ++r) {
+          const int kj = row_a + 8 * wg::half_of(r);
+          const int qi = q0 + wg::col_of(r) + col_t;
+          if (p.q_off + qi < p.k_off + kj) sacc[r] = -INFINITY;
+        }
+      }
+      // p and ds for each pair of neighbouring columns, rounded to bf16
+      // straight into the A operands (wg::to_a_operand's packing)
+      const float* lneg = rows + s * 2 * QR;
+      const float* dvr = lneg + QR;
+      uint32_t pa[4][4], da[4][4];
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int r = 8 * kk + 2 * j, c = wg::col_of(r) + col_t;
+          const float2 l = *reinterpret_cast<const float2*>(lneg + c);
+          const float2 d = *reinterpret_cast<const float2*>(dvr + c);
+          const float p0 = hopper::ex2(fmaf(sacc[r], sl2, l.x));
+          const float p1 = hopper::ex2(fmaf(sacc[r + 1], sl2, l.y));
+          pa[kk][j] = hopper::pack_bf16(p0, p1);
+          da[kk][j] = hopper::pack_bf16(p0 * (dpacc[r] - d.x) * p.scale,
+                                        p1 * (dpacc[r + 1] - d.y) * p.scale);
+        }
+      wg::product_rs<DMAX>(dvacc, pa, Os);
+      wg::product_rs<DMAX>(dkacc, da, Qs);
+      hopper::wgmma_commit();
+      hopper::wgmma_wait0();
+#pragma unroll
+      for (int a = 0; a < NA; ++a) {
+        hopper::fence_regs(dkacc[a]);
+        hopper::fence_regs(dvacc[a]);
+      }
+    }
+    __syncwarp();
+    if (lane == 0) hopper::mbar_arrive(&empty[s]);
+  }
+
+  // ---- epilogue: dK and dV in bf16, once; zeros where no query looked
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int t = row_a + 8 * i;
+    if (t >= p.Tk) continue;
+    const long long row = (static_cast<long long>(b) * p.Tk + t) * p.Hk + hk;
+    wg::store_row<NA>(dk + row * p.D, dkacc, i, 1.f, col_t, p.D);
+    wg::store_row<NA>(dv + row * p.D, dvacc, i, 1.f, col_t, p.D);
+  }
+}
+
 // ------------------------------------------------------------- launchers
 // dynamic shared memory of each kernel, in floats
 template <int DMAX> constexpr int fwd_floats() {
@@ -1130,16 +1338,38 @@ cudaError_t bwd_dq_wgmma(const Dims& p, const void* q, const void* k,
   return cudaGetLastError();
 }
 
+template <int DMAX>
+cudaError_t bwd_dkv_wgmma(const Dims& p, const void* q, const void* k,
+                          const void* v, const void* dout, const void* lse,
+                          const void* dvec, void* dk, void* dv,
+                          cudaStream_t s) {
+  CUtensorMap mq, mk, mv, mdo;
+  cudaError_t e;
+  if ((e = make_map(&mq, q, p.sq, p.B, p.Tq, p.H, p.D, wg::kKRows)) ||
+      (e = make_map(&mdo, dout, p.sdo, p.B, p.Tq, p.H, p.D, wg::kKRows)) ||
+      (e = make_map(&mk, k, p.sk, p.B, p.Tk, p.Hk, p.D, wg::kQRows)) ||
+      (e = make_map(&mv, v, p.sv, p.B, p.Tk, p.Hk, p.D, wg::kQRows)))
+    return e;
+  // K and V resident, + each stage's per-query terms (2 x 64 floats)
+  using C = wg::Cfg<DMAX>;
+  const int bytes = C::smem(2) + C::kStages * 2 * wg::kKRows * 4;
+  e = cudaFuncSetAttribute(flash_bwd_dkv_wgmma_kernel<DMAX>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (e != cudaSuccess) return e;
+  // (kv head, batch, K tile)
+  const dim3 grid(p.Hk, p.B, (p.Tk + wg::kQRows - 1) / wg::kQRows);
+  if (grid.z > 65535) return cudaErrorInvalidValue;
+  flash_bwd_dkv_wgmma_kernel<DMAX><<<grid, wg::kThreads, bytes, s>>>(
+      mq, mk, mv, mdo, static_cast<const float*>(lse),
+      static_cast<const float*>(dvec), static_cast<__nv_bfloat16*>(dk),
+      static_cast<__nv_bfloat16*>(dv), p);
+  return cudaGetLastError();
+}
+
 // dtype code: 0 = float32, 1 = bfloat16; head dims up to 64 take the
-// narrower instantiation
-#define DISPATCH(dtype, D, FN, ...)                                      \
-  ((dtype) == 0                                                         \
-       ? ((D) <= 64 ? FN<float, 64>(__VA_ARGS__)                        \
-                    : FN<float, 128>(__VA_ARGS__))                      \
-       : ((D) <= 64 ? FN<__nv_bfloat16, 64>(__VA_ARGS__)                \
-                    : FN<__nv_bfloat16, 128>(__VA_ARGS__)))
-// K2 and K3 split on the type: float32 to the SIMT kernels, bfloat16 to the
-// wgmma ones. Not a fallback: each type has exactly one kernel.
+// narrower instantiation. Each kernel splits on the type: float32 to the
+// SIMT kernels, bfloat16 to the wgmma ones. Not a fallback: each type has
+// exactly one kernel.
 #define DISPATCH_SPLIT(dtype, D, SIMT, WGMMA, ...)                       \
   ((dtype) == 0                                                         \
        ? ((D) <= 64 ? SIMT<float, 64>(__VA_ARGS__)                      \
@@ -1186,5 +1416,6 @@ extern "C" int flash_bwd_dkv_launch(int dtype, const long long* ints,
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return static_cast<int>(
-      DISPATCH(dtype, p.D, bwd_dkv, p, q, k, v, dout, lse, dvec, dk, dv, s));
+      DISPATCH_SPLIT(dtype, p.D, bwd_dkv, bwd_dkv_wgmma, p, q, k, v, dout,
+                     lse, dvec, dk, dv, s));
 }

@@ -15,11 +15,11 @@ of the stack, never materialising the ``[T, T]`` scores on the card:
 
 Three kernels carry the primitive: K2 (``flash_forward``), K3
 (``flash_bwd_dq``) and K4 (``flash_bwd_dkv``), hand-written CUDA C++ for
-Hopper in ``minips_tpu_torch/csrc/flash_attn.cu``. On bfloat16 K2 and K3
-are the ``wgmma`` kernels (tensor cores, TMA tile loads into a ring of
+Hopper in ``minips_tpu_torch/csrc/flash_attn.cu``. On bfloat16 all three
+are ``wgmma`` kernels (tensor cores, TMA tile loads into a ring of
 shared-memory stages); on float32 they are the first SIMT kernels, which
-keep full f32 products (``wgmma`` on f32 would be TF32). K4 is the SIMT
-kernel in both types. Which version runs depends only on where the
+keep full f32 products (``wgmma`` on f32 would be TF32). Which version
+runs depends only on where the
 tensors lie: a CUDA tensor launches the kernel (and counts it in
 ``<wrapper>.launches``) or raises; a CPU tensor runs the plain version
 beside it (``flash_forward_reference``,
@@ -29,7 +29,8 @@ no fallback. On the card the shape gate is the kernels' own
 (``kernel_supported``: any Tq and Tk, D a multiple of 8 up to 128, kv heads
 dividing q heads), not the JAX package's block-size gate, which existed for
 the TPU's tiles. The kernels tile K at ``KERNEL_BLOCK`` = 64 rows (Q at
-64, or 128 in the bfloat16 K2/K3); a caller's ``block_k`` sets only the
+64, or 128 in the bfloat16 K2/K3; the bfloat16 K4 holds 128 keys a block
+and streams Q in tiles of 64); a caller's ``block_k`` sets only the
 plain version's K tile (its online-softmax rounding follows its tiles, as
 the TPU kernel's does).
 """
@@ -278,7 +279,7 @@ def _check(name, q, k, v, *rest):
 
 
 def tma_ready(t: torch.Tensor) -> bool:
-    """Whether the bfloat16 K2/K3 kernels' TMA loads take ``t [B, T, H, D]``
+    """Whether the bfloat16 kernels' TMA loads take ``t [B, T, H, D]``
     as it lies: unit stride along D, a 16-byte aligned base, 16-byte
     multiples for the other strides, and strides growing from H to T to B
     over the dims longer than 1 (the order of the kernels' tensor map). The
@@ -302,7 +303,7 @@ def tma_ready(t: torch.Tensor) -> bool:
 
 
 def _for_tma(*tensors):
-    """The tensors as the bfloat16 K2/K3 take them: each that is not
+    """The tensors as the bfloat16 kernels take them: each that is not
     :func:`tma_ready` replaced by a contiguous copy (a fresh, aligned
     allocation)."""
     return tuple(t if tma_ready(t)
@@ -390,11 +391,14 @@ def flash_bwd_dkv(q, k, v, dout, lse, dvec, q_off: int = 0, k_off: int = 0,
     """K4: ``(dK, dV)`` ``[B, Tk, Hk, D]`` at the kv head count, summed
     over each kv head's q heads. CUDA tensors launch the kernel (counted in
     ``flash_bwd_dkv.launches``); CPU tensors run
-    :func:`flash_bwd_dkv_reference`."""
+    :func:`flash_bwd_dkv_reference`. On bfloat16 a q, k, v or dO that is
+    not :func:`tma_ready` is made contiguous before the launch."""
     if _check("flash_bwd_dkv", q, k, v, dout, lse, dvec):
         return flash_bwd_dkv_reference(q, k, v, dout, lse, dvec, q_off,
                                        k_off, causal=causal, scale=scale)
     lse, dvec = _rows(q, dout, lse, dvec)
+    if q.dtype == torch.bfloat16:
+        q, k, v, dout = _for_tma(q, k, v, dout)
     dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
     dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
     _launch("flash_bwd_dkv_launch", "flash_bwd_dkv", q, k, v, dout, q_off,

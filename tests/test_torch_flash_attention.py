@@ -124,28 +124,40 @@ def test_gradients_with_lse_cotangent_match_jax_vjp(case, causal, dtype):
 
 
 @pytest.mark.parametrize("causal", [False, True])
-def test_backward_plain_versions_match_jax_backward(causal):
-    """K3's and K4's plain versions against ``_flash_backward`` directly,
-    with a dvec that is not rowsum(dO·O)."""
-    B, T, H, Hk, D = 1, 64, 4, 2, 16
+@pytest.mark.parametrize("shape", [
+    (1, 64, 64, 4, 2, 16, 16, 0),    # GQA g = 2, offsets as a ring step
+    # Tk > Tq, no offset: under the causal mask keys 32.. see no query
+    (1, 32, 96, 4, 2, 16, 0, 0),
+    (2, 64, 64, 8, 2, 16, 0, 0),     # GQA g = 4: K4 sums four q heads
+])
+def test_backward_plain_versions_match_jax_backward(shape, causal):
+    """K3's and K4's plain versions against ``_flash_backward`` directly
+    (blocks of 32, which tile every T here, as the JAX kernel's gate asks),
+    with a dvec that is not rowsum(dO·O). Keys that no query sees get dK =
+    dV = 0 exactly on both sides."""
+    B, Tq, Tk, H, Hk, D, q_off, k_off = shape
     rng = np.random.default_rng(3)
-    q, k, v = _inputs(rng, B, T, T, H, Hk, D)
-    do = rng.normal(size=(B, T, H, D)).astype(np.float32)
-    _, lse = jfa._flash_forward(*(jnp.asarray(x) for x in (q, k, v)),
-                                jnp.int32(16), jnp.int32(0), causal,
-                                D ** -0.5, 32, 32, True)
-    dvec = rng.normal(size=(B, H, T, 1)).astype(np.float32)
+    q, k, v = _inputs(rng, B, Tq, Tk, H, Hk, D)
+    assert jfa.kernel_supported(q.shape, k.shape, 32, 32)
+    do = rng.normal(size=(B, Tq, H, D)).astype(np.float32)
+    offs = (jnp.int32(q_off), jnp.int32(k_off))
+    _, lse = jfa._flash_forward(*(jnp.asarray(x) for x in (q, k, v)), *offs,
+                                causal, D ** -0.5, 32, 32, True)
+    dvec = rng.normal(size=(B, H, Tq, 1)).astype(np.float32)
     dq, dk, dv = jfa._flash_backward(
-        *(jnp.asarray(x) for x in (q, k, v)), jnp.int32(16), jnp.int32(0),
-        jnp.asarray(do), lse, jnp.asarray(dvec), causal, D ** -0.5, 32, 32,
-        True)
+        *(jnp.asarray(x) for x in (q, k, v)), *offs, jnp.asarray(do), lse,
+        jnp.asarray(dvec), causal, D ** -0.5, 32, 32, True)
     args = [torch.from_numpy(x) for x in (q, k, v, do)] + [
         torch.from_numpy(np.asarray(lse)), torch.from_numpy(dvec)]
-    got_dq = tfa.flash_bwd_dq(*args, 16, 0, causal=causal, scale=D ** -0.5)
-    got_dk, got_dv = tfa.flash_bwd_dkv(*args, 16, 0, causal=causal,
-                                       scale=D ** -0.5)
+    kw = dict(causal=causal, scale=D ** -0.5)
+    got_dq = tfa.flash_bwd_dq(*args, q_off, k_off, **kw)
+    got_dk, got_dv = tfa.flash_bwd_dkv(*args, q_off, k_off, **kw)
     for got, want in ((got_dq, dq), (got_dk, dk), (got_dv, dv)):
         _close(got.numpy(), np.asarray(want), "float32")
+    unseen = min(max(q_off + Tq - k_off, 0), Tk) if causal else Tk
+    for x in (got_dk.numpy(), got_dv.numpy(), np.asarray(dk),
+              np.asarray(dv)):
+        assert not x[:, unseen:].any()
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -314,6 +326,11 @@ def _norm_err(got, want):
     (2, 1, 70, 4, 2, 8, 69, 0),         # one query row at the end, D = 8
     (1, 130, 130, 2, 1, 72, 0, 0),      # D = 72: a second atom 8 wide
     (1, 64, 256, 4, 2, 64, 0, 192),     # causal rows that see no key
+    # the bf16 K4's 128-row K tiles: the last one ends inside its second
+    # warpgroup, with a ragged Tq and offsets
+    (2, 200, 328, 4, 2, 64, 128, 0),
+    (1, 128, 384, 8, 2, 64, 0, 0),      # Tk > Tq: causal K tiles 1, 2 see
+                                        # no query, GQA g = 4
     # q, k, v as the LM block makes them: views of the fused activation
     (16, 1024, 1024, 32, 32, 64, 0, 0, "lm_views"),
     (1, 192, 192, 8, 2, 64, 0, 0, "lm_views"),
@@ -322,7 +339,9 @@ def test_kernels_match_plain_versions_on_card(cuda_device, shape, causal,
                                               dtype):
     """K2, K3, K4 against their plain versions: float32 to 1e-4 and
     bfloat16 to 2^-7 of max(1, max |value|) (the rounding points are
-    shared; only the f32 summation order differs)."""
+    shared; only the f32 summation order differs). Keys that no query sees
+    get dK = dV = 0 exactly, though the caching allocator hands K4 outputs
+    over memory filled with NaN just before."""
     B, Tq, Tk, H, Hk, D, q_off, k_off, *layout = shape
     tol = 1e-4 if dtype == torch.float32 else 2.0 ** -7
     gen = torch.Generator(device=cuda_device).manual_seed(0)
@@ -345,6 +364,8 @@ def test_kernels_match_plain_versions_on_card(cuda_device, shape, causal,
     assert float((lse - rlse).abs().max()) <= 1e-4
     dvec = (do.float() * ref.float()).sum(-1).transpose(1, 2)[..., None]
     dq = tfa.flash_bwd_dq(q, k, v, do, rlse, dvec, q_off, k_off, **args)
+    # freed at once: the allocator hands its NaNs to K4's outputs
+    torch.full((4 * k.numel(),), float("nan"), device=cuda_device)
     dk, dv = tfa.flash_bwd_dkv(q, k, v, do, rlse, dvec, q_off, k_off, **args)
     torch.cuda.synchronize()
     assert _norm_err(dq, tfa.flash_bwd_dq_reference(
@@ -352,6 +373,32 @@ def test_kernels_match_plain_versions_on_card(cuda_device, shape, causal,
     rdk, rdv = tfa.flash_bwd_dkv_reference(q, k, v, do, rlse, dvec, q_off,
                                            k_off, **args)
     assert _norm_err(dk, rdk) <= tol and _norm_err(dv, rdv) <= tol
+    unseen = min(max(q_off + Tq - k_off, 0), Tk) if causal else Tk
+    assert not dk[:, unseen:].any() and not dv[:, unseen:].any()
+
+
+@pytest.mark.cuda
+def test_bf16_dkv_is_bit_identical_across_launches_on_card(cuda_device):
+    """The bf16 K4 sums the four q heads of each kv head (GQA g = 4) in a
+    fixed order with no atomics: two launches on the same inputs give the
+    same dK and dV to the bit."""
+    B, T, H, Hk, D = 2, 512, 16, 4, 64
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+
+    def rnd(*s):
+        return torch.randn(s, generator=gen, device=cuda_device).to(
+            torch.bfloat16)
+
+    q, k, v, do = rnd(B, T, H, D), rnd(B, T, Hk, D), rnd(B, T, Hk, D), \
+        rnd(B, T, H, D)
+    args = dict(causal=True, scale=D ** -0.5)
+    out, lse = tfa.flash_forward(q, k, v, **args)
+    dvec = (do.float() * out.float()).sum(-1).transpose(1, 2)[..., None]
+    dk1, dv1 = tfa.flash_bwd_dkv(q, k, v, do, lse, dvec, **args)
+    dk2, dv2 = tfa.flash_bwd_dkv(q, k, v, do, lse, dvec, **args)
+    torch.cuda.synchronize()
+    assert dk1.abs().max() > 0 and dv1.abs().max() > 0
+    assert torch.equal(dk1, dk2) and torch.equal(dv1, dv2)
 
 
 @pytest.mark.cuda
