@@ -20,9 +20,13 @@ on failure:
    requires no register spills in the bf16 flash kernels at head dims up
    to 64 (the LM's); then reads the built flash library's SASS
    (``cuobjdump``) and requires tensor-core instructions (``HGMMA``) in the
-   bf16 K2, K3 and K4 kernels;
-3. kernels: the row gather against its plain PyTorch version on the card
-   (bit-exact);
+   bf16 K2, K3 and K4 kernels, and 128-bit global loads and no ``CALL``
+   (a software division) in the row gather's D = 1 and D = 8 kernels;
+3. kernels: the row gather against its plain PyTorch version on the card,
+   bit-exact, at D 1, 2, 3, 4, 8, 16, 128 and 129, f32, bf16 and f16, N
+   from 1 to 9 and the main path's, slot views that start 0 to 3 elements
+   into their buffer, out-of-range, boundary and repeated slots, and the
+   step's [B, 26] slot shape;
 4. hash: the key hash on the card, bit-identical to its numpy twin;
 5. LR + MLP path: 20 steps of both models, with finite and falling loss,
    the row gather's launch count, the same first 3 steps on the CPU port
@@ -41,7 +45,9 @@ on failure:
    and on the CPU port from the same weights;
 9. timings: every kernel's time at its main path's shapes beside its plain
    version's, one PyTorch call's and the least time the card could take,
-   with the kernel's design (``wgmma`` or ``simt``).
+   with the kernel's design (``wgmma`` or ``simt-vec``); the row gather
+   also cold (L2 flushed before each launch, the time its bound is read
+   against), at the D = 128 pull's shape, and its host launch cost.
 
 The last two lines are a JSON object with every kernel's numbers and then
 ``{"ok": true, "device": {...}}``. Without CUDA, or without the package
@@ -91,7 +97,7 @@ FLASH_TOL = {"float32": 1e-4, "bfloat16": 2.0 ** -7}
 LSE_TOL = 1e-4  # lse is float32 on both sides
 # peak rates of an H100 SXM (NVIDIA data sheet): dense bf16 tensor cores
 BF16_FLOPS = 989e12
-DESIGN = {"gather_rows": "simt", "flash_forward": "wgmma",
+DESIGN = {"gather_rows": "simt-vec", "flash_forward": "wgmma",
           "flash_bwd_dq": "wgmma", "flash_bwd_dkv": "wgmma"}
 # the bf16 K2, K3 and K4 kernels, each of which must hold HGMMA
 # instructions; those at head dims up to 64 (the LM's) must not spill
@@ -101,6 +107,21 @@ WGMMA_KERNELS = ("flash_fwd_wgmma_kernel<bf16,64>",
                  "flash_bwd_dq_wgmma_kernel<bf16,128>",
                  "flash_bwd_dkv_wgmma_kernel<bf16,64>",
                  "flash_bwd_dkv_wgmma_kernel<bf16,128>")
+# the gather's word types as they appear in its kernels' mangled names
+GATHER_WORDS = {"h": "u8", "t": "u16", "j": "u32", "5uint2": "u64",
+                "5uint4": "u128"}
+# the gather instantiations of the main path's rows (D = 1 and D = 8 f32),
+# at both index widths, each of which must load 128 bits at a time and call
+# no routine (a software division would be a CALL)
+GATHER_MAIN_KERNELS = ("gather_narrow_kernel<u32x1,",
+                       "gather_rows_kernel<u128x2,")
+# phase 3's gather cases: row widths, counts (and the main path's N),
+# slot views that start this many elements into their buffer
+GATHER_DIMS = (1, 2, 3, 4, 8, 16, 128, 129)
+GATHER_SMALL_NS = (1, 3, 4, 5, 7, 8, 9)
+GATHER_OFFSETS = (0, 1, 2, 3)
+GATHER_COLD_FLUSH_BYTES = 256 << 20  # written before each cold launch
+LAUNCH_CALLS = 200  # host calls timed for the gather's launch cost
 # Device memory rate by card, bytes/s (NVIDIA data sheets); the H100 SXM's
 # 3.35 TB/s unless the name says otherwise.
 MEM_BW = (("H100 PCIe", 2.0e12), ("H100 NVL", 3.9e12), ("H200", 4.8e12),
@@ -122,10 +143,11 @@ def gpu_line() -> str:
 
 def kernel_name(mangled: str) -> str:
     """A kernel template's mangled name as ``flash_fwd_kernel<bf16,64>``
-    (element type and head-dim instantiation) or ``gather_rows_kernel<j>``
-    (its mangled template argument). The name is the identifier ending in
-    ``_kernel`` that its length prefix delimits: the namespace before it
-    may end in digits too."""
+    (element type and head-dim instantiation) or
+    ``gather_rows_kernel<u128x2,r4,i32>`` (word type, words per row (``N``
+    at a runtime width), rows per thread, index width). The name is the
+    identifier ending in ``_kernel`` that its length prefix delimits: the
+    namespace before it may end in digits too."""
     tag = mangled.find("_kernelI")
     if tag < 0:
         return mangled
@@ -134,11 +156,23 @@ def kernel_name(mangled: str) -> str:
                   if mangled[:i].endswith(str(end - i))), None)
     if start is None:
         return mangled
+    base = mangled[start:end]
+    if base.startswith("gather_"):
+        wide = re.match(r"I(\d+\w+?|[a-z])Li(\d+)ELi(\d+)E([a-z])E",
+                        mangled[end:])
+        # the narrow kernel's rows are one 4-byte word: <rows, index>
+        narrow = re.match(r"ILi(\d+)E([a-z])E", mangled[end:])
+        if wide or narrow:
+            word, words, rows, index = (wide.groups() if wide else
+                                        ("j", "1", *narrow.groups()))
+            return (f"{base}<{GATHER_WORDS.get(word, word)}x"
+                    f"{words if words != '0' else 'N'},r{rows},"
+                    f"{'i32' if index == 'i' else 'i64'}>")
     dmax = re.match(r"I\w*?Li(\d+)E", mangled[end:])
     if dmax:
         dtype = "f32" if mangled[end + 1] == "f" else "bf16"
-        return f"{mangled[start:end]}<{dtype},{dmax.group(1)}>"
-    return f"{mangled[start:end]}<{mangled[end + 1:mangled.find('E', end)]}>"
+        return f"{base}<{dtype},{dmax.group(1)}>"
+    return f"{base}<{mangled[end + 1:mangled.find('E', end)]}>"
 
 
 def ptxas_lines(log: str):
@@ -166,19 +200,24 @@ def spill_check(log: str) -> None:
                   f"{name} spills registers: {line}")
 
 
-def tensor_core_check(build) -> dict:
-    """HGMMA (wgmma) instructions per kernel of the built flash library,
-    read from its SASS with ``cuobjdump``. Raises unless every bf16 K2, K3
-    and K4 kernel holds some."""
+def sass_by_kernel(build, library) -> dict:
+    """Each kernel's SASS in a built library, by label (``cuobjdump
+    --dump-sass``)."""
     cuobjdump = os.path.join(os.path.dirname(build._nvcc()), "cuobjdump")
     sass = subprocess.run(
-        [cuobjdump, "--dump-sass", str(build.library_path("flash_attn"))],
+        [cuobjdump, "--dump-sass", str(library)],
         capture_output=True, text=True, timeout=300, check=True).stdout
-    counts = {}
-    for chunk in sass.split("Function : ")[1:]:
-        name = kernel_name(chunk.split("\n", 1)[0].strip())
-        if name.startswith("flash_"):
-            counts[name] = chunk.count("HGMMA")
+    return {kernel_name(chunk.split("\n", 1)[0].strip()): chunk
+            for chunk in sass.split("Function : ")[1:]}
+
+
+def tensor_core_check(build) -> dict:
+    """HGMMA (wgmma) instructions per kernel of the built flash library.
+    Raises unless every bf16 K2, K3 and K4 kernel holds some."""
+    counts = {name: chunk.count("HGMMA")
+              for name, chunk in sass_by_kernel(
+                  build, build.library_path("flash_attn")).items()
+              if name.startswith("flash_")}
     for name in WGMMA_KERNELS:
         check(counts.get(name, 0) > 0,
               f"no HGMMA in {name}: the bf16 kernel does not use the tensor "
@@ -186,11 +225,35 @@ def tensor_core_check(build) -> dict:
     return counts
 
 
-def time_ms(torch, fn) -> float:
+def gather_sass_check(build) -> dict:
+    """128-bit global loads (``LDG.E.128`` in any suffixed form) and
+    ``CALL``s (a software division routine would be one) per kernel of the
+    built gather library. Raises unless the main path's instantiations
+    (D = 1 and D = 8 f32) each hold a 128-bit load and no ``CALL``."""
+    counts = {name: {"ldg128": len(re.findall(
+                         r"\bLDG\.E[.A-Z0-9_]*?\.128\b", chunk)),
+                     "call": len(re.findall(r"\bCALL\b", chunk))}
+              for name, chunk in sass_by_kernel(
+                  build, build.library_path("gather_rows")).items()}
+    for prefix in GATHER_MAIN_KERNELS:
+        found = {n: c for n, c in counts.items() if n.startswith(prefix)}
+        check(len(found) == 2, f"expected {prefix}...> at both index widths "
+              f"in the gather library, found {sorted(counts)}")
+        for name, c in found.items():
+            check(c["ldg128"] > 0 and c["call"] == 0,
+                  f"{name}: {c['ldg128']} 128-bit loads and {c['call']} "
+                  "calls in its SASS; the design needs >0 and 0")
+    return counts
+
+
+def time_ms(torch, fn, before=None) -> float:
     """Median over TIMED_LAUNCHES calls, each between two CUDA events,
     after warm-up. A sleep kernel first holds the stream while the host
     queues every call, so that the events bracket device time only and
-    not the host's launch overhead (which exceeds a short kernel's time)."""
+    not the host's launch overhead (which exceeds a short kernel's time).
+    ``before`` is queued ahead of each call, outside the events: a write of
+    a tensor larger than L2 makes the call start with its data out of L2,
+    which gives the cold time."""
     for _ in range(5):
         fn()
     torch.cuda.synchronize()
@@ -199,11 +262,28 @@ def time_ms(torch, fn) -> float:
           for _ in range(TIMED_LAUNCHES)]
     torch.cuda._sleep(SLEEP_CYCLES)
     for s, e in ev:
+        if before is not None:
+            before()
         s.record()
         fn()
         e.record()
     torch.cuda.synchronize()
     return statistics.median(s.elapsed_time(e) for s, e in ev)
+
+
+def launch_cost_us(torch, fn) -> float:
+    """Host time of one call of ``fn`` in microseconds, the mean of
+    LAUNCH_CALLS calls queued while a sleep kernel holds the stream, so that
+    no call waits for the card."""
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(SLEEP_CYCLES)
+    t0 = time.perf_counter()
+    for _ in range(LAUNCH_CALLS):
+        fn()
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return 1e6 * host_s / LAUNCH_CALLS
 
 
 def lm_views(make, B, T, H, Hk, D):
@@ -331,8 +411,10 @@ def device_time(torch, run, steps: int, step_ms: float) -> dict:
                                calls + 1)
     busy = sum(ms for ms, _ in by_name.values()) / steps
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
+    gather_ms = sum(ms for n, (ms, _) in by_name.items() if "gather_" in n)
     return {
         "device_busy_ms": busy if by_name else "not measured",
+        "gather_rows_ms": gather_ms / steps if by_name else "not measured",
         "device_idle_share": (1 - busy / step_ms) if by_name
         else "not measured",
         "device_ops": sum(c for _, c in by_name.values()) / steps,
@@ -355,6 +437,7 @@ def main() -> int:
     from minips_tpu_torch.apps.lm import build_lm
     from minips_tpu_torch.apps.lrmlp import build_lrmlp
     from minips_tpu_torch.ops import _build
+    from minips_tpu_torch.ops.gather import _launcher as gather_launcher
     from minips_tpu_torch.ops.gather import (gather_rows,
                                              gather_rows_reference)
     from minips_tpu_torch.tables.sparse import (SparseTable, hash_to_slots,
@@ -382,12 +465,15 @@ def main() -> int:
     hgmma = tensor_core_check(_build)
     print("tensor cores: HGMMA instructions per flash kernel (SASS): "
           + json.dumps(hgmma), flush=True)
+    print("gather: 128-bit global loads and calls per kernel (SASS): "
+          + json.dumps(gather_sass_check(_build)), flush=True)
 
     # ------------------------------------- 3. kernels against plain versions
     rng = np.random.default_rng(0)
     S = 1 << 18
     n_main = B * 26
     max_err = 0.0
+    bits = {4: torch.int32, 2: torch.int16}
 
     def compare(emb, slots):
         nonlocal max_err
@@ -399,26 +485,44 @@ def main() -> int:
         max_err = max(max_err, err)
         check(got.shape == want.shape and got.dtype == want.dtype,
               f"gather shape/dtype {tuple(got.shape)} {got.dtype}")
-        check(torch.equal(got, want),
+        as_bits = bits[emb.element_size()]
+        check(torch.equal(got.view(as_bits), want.view(as_bits)),
               f"gather differs from its plain version: D={emb.shape[1]} "
-              f"N={slots.numel()} {emb.dtype} max err {err}")
+              f"N={slots.numel()} {emb.dtype} storage offset "
+              f"{slots.storage_offset()} max err {err}")
+
+    def slot_view(n, off):
+        """n slots as a view ``off`` elements into its buffer (the kernel
+        copies the rows before the first 16-byte aligned slot one by one):
+        random rows, with out-of-range and boundary slots inside the first
+        two 4-slot groups and at the end, and a run of repeated rows."""
+        vals = rng.integers(0, S, n)
+        edge = [-4, S + 9, 0, S - 1, S - 1, 0, -1, S]
+        vals[:min(n, 8)] = edge[:min(n, 8)]
+        if n > 136:
+            vals[8:72] = vals[72:136]
+            vals[-3:] = (-7, S, S - 1)
+        buf = torch.empty(n + off, dtype=torch.int32, device=dev)
+        buf[off:] = torch.as_tensor(vals, dtype=torch.int32, device=dev)
+        return buf[off:]
 
     cases = 0
-    for dtype in (torch.float32, torch.bfloat16):
-        for d in (1, 8, 128):
+    for dtype in (torch.float32, torch.bfloat16, torch.float16):
+        for d in GATHER_DIMS:
             emb = torch.randn((S, d), device=dev).to(dtype)
-            big = rng.integers(0, S, n_main, dtype=np.int64)
-            big[:64] = big[64:128]           # repeats
-            big[128:132] = (0, S - 1, 0, S - 1)  # boundary rows
-            compare(emb, torch.as_tensor(big, dtype=torch.int32, device=dev))
-            for small in ([3, 3, 0, S - 1, 5, S - 1, 0], [S - 1],
-                          [-4, S + 9, 0, S - 1, 2, 2, 7]):
-                compare(emb, torch.tensor(small, dtype=torch.int32,
-                                          device=dev))
-            cases += 4
+            for n in (*GATHER_SMALL_NS, n_main):
+                for off in GATHER_OFFSETS:
+                    compare(emb, slot_view(n, off))
+                    cases += 1
+    for d in (1, 8):  # [B, 26] field shapes, as the LR + MLP step has them
+        compare(torch.randn((S, d), device=dev), torch.as_tensor(
+            rng.integers(0, S, (B, 26)), dtype=torch.int32, device=dev))
+        cases += 1
     print(f"gather_rows: {cases} cases bit-exact against the plain version "
-          f"(D 1/8/128, N {n_main}/7/1, f32 and bf16, repeats, boundary and "
-          f"out-of-range slots)", flush=True)
+          f"(D {GATHER_DIMS} x N {(*GATHER_SMALL_NS, n_main)} x slot views "
+          f"{GATHER_OFFSETS} elements into their buffer x f32/bf16/f16; "
+          "out-of-range and boundary slots inside 4-slot groups, repeated "
+          f"rows; [{B}, 26] slots at D 1 and 8)", flush=True)
 
     # ------------------------------------------------------------ 4. hash
     keys = np.concatenate([
@@ -647,37 +751,79 @@ def main() -> int:
     del card_lm, cpu_lm
 
     # ------------------------------------------------------------ 9. timings
+    # K1 at the LR + MLP step's two gathers and at the D = 128 pull of
+    # phase 6; warm (as in earlier runs) and cold (L2 flushed by a write of
+    # GATHER_COLD_FLUSH_BYTES before each launch). The bound counts device
+    # memory bytes, so its share is read from the cold time.
+    flush = torch.empty(GATHER_COLD_FLUSH_BYTES, dtype=torch.uint8,
+                        device=dev)
     shapes = []
-    for table, salt in ((p.wide, 1), (p.emb, 2)):
-        slots = hash_to_slots(cats, S, salt).reshape(-1)
-        emb = table.emb
-        d, item = emb.shape[1], emb.element_size()
+    wide_slots = hash_to_slots(cats, S, 1).reshape(-1)
+    for emb, slots, main in (
+            (p.wide.emb, wide_slots, True),
+            (p.emb.emb, hash_to_slots(cats, S, 2).reshape(-1), True),
+            (t128.emb, hash_to_slots(k128, S, 0), False)):
+        n, d, item = slots.numel(), emb.shape[1], emb.element_size()
         uniq = int(torch.unique(slots).numel())
-        nbytes = slots.numel() * 4 + uniq * d * item + slots.numel() * d * item
-        shapes.append({
-            "D": d, "N": slots.numel(), "unique_rows": uniq,
+        nbytes = n * 4 + uniq * d * item + n * d * item
+        shape = {
+            "D": d, "N": n, "main_path": main, "unique_rows": uniq,
             "bytes": nbytes,
             "kernel_ms": time_ms(torch, lambda: gather_rows(emb, slots)),
+            "cold_ms": time_ms(torch, lambda: gather_rows(emb, slots),
+                               flush.zero_),
             "plain_ms": time_ms(torch,
                                 lambda: gather_rows_reference(emb, slots)),
             "library_ms": time_ms(torch,
                                   lambda: torch.index_select(emb, 0, slots)),
+            "library_cold_ms": time_ms(
+                torch, lambda: torch.index_select(emb, 0, slots),
+                flush.zero_),
             "bound_ms": 1e3 * nbytes / mem_bw,
-        })
-    for s in shapes:
-        print("gather_rows at the main path's shape: " + json.dumps(s))
+        }
+        # above 1 where L2 still holds part of the output when the kernel
+        # ends (it is write-back): printed, not a gain. Biased low: the
+        # flush leaves L2 full of dirty lines, whose write-back the launch
+        # pays as it evicts them.
+        shape["bound_share_cold"] = shape["bound_ms"] / shape["cold_ms"]
+        shape["cold_after"] = (f"a write of {GATHER_COLD_FLUSH_BYTES >> 20} "
+                               "MB (dirty lines in L2)")
+        if main:  # a quarter of the rows, and 4 rows: the fixed cost
+            quarter, four = slots[:n // 4], slots[:4]
+            shape["quarter_n_cold_ms"] = time_ms(
+                torch, lambda: gather_rows(emb, quarter), flush.zero_)
+            shape["n4_ms"] = time_ms(torch, lambda: gather_rows(emb, four))
+        shapes.append(shape)
+        print("gather_rows at " + ("the main path's" if main else "the "
+              "D=128 pull's") + " shape: " + json.dumps(shape), flush=True)
+    del flush
+    emb, slots = p.wide.emb, wide_slots
+    rows_out = torch.empty((slots.numel(), 1), device=dev)
+    launch_us = {
+        "gather_rows_call_us": launch_cost_us(
+            torch, lambda: gather_rows(emb, slots)),
+        "ctypes_launch_us": launch_cost_us(torch, lambda: gather_launcher()(
+            emb.data_ptr(), slots.data_ptr(), rows_out.data_ptr(),
+            slots.numel(), S, 4, torch.cuda.current_stream().cuda_stream))}
+    print("gather_rows launch cost on the host, D=1 main shape, stream held "
+          "by a sleep kernel (the wrapper's call; the bare ctypes launch): "
+          + json.dumps(launch_us), flush=True)
+    main_shapes = [s for s in shapes if s["main_path"]]
     kernels = [{
         "name": "gather_rows", "route": "cuda",
         "source": "minips_tpu_torch/csrc/gather_rows.cu",
         "replaces": "minips_tpu/ops/pallas_kernels.py:69",
         "launches": main_launches["gather_rows"],
         "max_abs_err": max_err,
-        # one training step's two gathers (D=1 and D=8), summed
-        "ms": sum(s["kernel_ms"] for s in shapes),
-        **{k: sum(s[k] for s in shapes)
-           for k in ("plain_ms", "bound_ms", "library_ms")},
+        # summed over one training step's two gathers (D=1 and D=8)
+        **{k: sum(s[src] for s in main_shapes)
+           for k, src in (("ms", "kernel_ms"), ("cold_ms", "cold_ms"),
+                          ("plain_ms", "plain_ms"),
+                          ("bound_ms", "bound_ms"),
+                          ("library_ms", "library_ms"))},
         "bound_by": "bytes",
         "design": DESIGN["gather_rows"],
+        "launch_us": launch_us,
         "shapes": shapes,
     }]
 
