@@ -2,7 +2,9 @@
 ``bench.py:bench_lm``, as ``apps/lrmlp.py`` is for ``bench_lrmlp``.
 
 ``build_lm`` builds one ``DenseTable`` named ``"lm"`` holding the whole LM
-(Adam, lr 1e-3, float32 master weights and state) and its fused step
+(Adam, lr 1e-3, float32 master weights; the optimizer state in float32,
+bfloat16 or blockwise int8 by ``opt_state``, as ``bench_lm``'s
+``--lm-opt-state``) and its fused step
 ``table.make_step(grad_fn, compute_dtype=...)`` with flash attention and
 the chunked tied head. Its defaults are ``bench_lm``'s: 8 blocks of width
 2048 with 32 heads of 64, vocab 2^14, a learned positional table of
@@ -25,26 +27,37 @@ from minips_tpu_torch.models import transformer as tfm
 from minips_tpu_torch.parallel.mesh import DeviceLike, resolve_device
 from minips_tpu_torch.tables.dense import DenseTable
 
+# bench_lm's --lm-opt-state: the updater that stores Adam's moments so
+OPT_STATE_UPDATERS = {"f32": "adam", "bf16": "adam_bf16", "int8": "adam8"}
+
 
 def build_lm(batch: int = 16, seq: int = 1024, *, dim: int = 2048,
              depth: int = 8, vocab: int = 1 << 14, device: DeviceLike = None,
              seed: int = 0, head_chunk: int = 128, remat=False,
              compute_dtype: Optional[torch.dtype] = torch.bfloat16,
-             kv_heads: Optional[int] = None, rope: bool = False):
+             kv_heads: Optional[int] = None, rope: bool = False,
+             opt_state: str = "f32"):
     """The LM and its step at batch ``batch`` and sequence ``seq``, with
-    ``dim // 64`` heads as in ``bench_lm``. Returns a
-    namespace with ``table``, ``step`` (``table.step_inplace(step, b)``
-    runs it), ``batches`` (two ``{"tokens": [batch, seq + 1]}`` int64
-    batches on the device, drawn from ``numpy.random.default_rng(seed)``
-    as ``bench_lm`` draws them) and ``heads``. ``seed`` also seeds the
-    weights (a ``torch.Generator`` on the device)."""
+    ``dim // 64`` heads as in ``bench_lm``. ``opt_state`` is ``"f32"``
+    (``adam``), ``"bf16"`` (``adam_bf16``) or ``"int8"`` (``adam8``).
+    Returns a namespace with ``table``, ``step``
+    (``table.step_inplace(step, b)`` runs it), ``batches`` (two
+    ``{"tokens": [batch, seq + 1]}`` int64 batches on the device, drawn
+    from ``numpy.random.default_rng(seed)`` as ``bench_lm`` draws them),
+    ``heads`` and ``opt_state_bytes`` (the bytes of the optimizer-state
+    tensors, as ``bench_lm`` counts them). ``seed`` also seeds the weights
+    (a ``torch.Generator`` on the device)."""
+    if opt_state not in OPT_STATE_UPDATERS:
+        raise ValueError(f"opt_state must be one of "
+                         f"{sorted(OPT_STATE_UPDATERS)}, got {opt_state!r}")
     device = resolve_device(device)
     heads = dim // 64
     gen = torch.Generator(device=device).manual_seed(seed)
     params = tfm.init(gen, vocab=vocab, dim=dim, heads=heads, depth=depth,
                       max_len=seq, kv_heads=kv_heads, rope=rope,
                       device=device)
-    table = DenseTable(params, name="lm", updater="adam", lr=1e-3,
+    table = DenseTable(params, name="lm",
+                       updater=OPT_STATE_UPDATERS[opt_state], lr=1e-3,
                        device=device)
     del params  # the table holds the only copy, as one flat vector
     step = table.make_step(
@@ -55,5 +68,7 @@ def build_lm(batch: int = 16, seq: int = 1024, *, dim: int = 2048,
     batches = [{"tokens": torch.as_tensor(
         rng.integers(0, vocab, size=(batch, seq + 1)), device=device)}
         for _ in range(2)]
+    opt_state_bytes = sum(x.numel() * x.element_size()
+                          for x in table.opt_state)
     return SimpleNamespace(table=table, step=step, batches=batches,
-                           heads=heads)
+                           heads=heads, opt_state_bytes=opt_state_bytes)

@@ -8,10 +8,17 @@ weights by carrying them across. The JAX side hands over:
   ``layout``, then ``accum`` (adagrad) or ``m``, ``v``, ``steps`` (adam);
 - a dense table: the padded flat ``params`` and the list
   ``jax.tree.leaves(opt_state)`` in leaf order — adagrad gives
-  ``[sum_of_squares]``, adam ``[count, mu, nu]``.
+  ``[sum_of_squares]``, adam ``[count, mu, nu]``, adam_bf16 ``[count, mu,
+  nu]`` with bfloat16 moments, adam8 ``[count, mu_q, mu_s, nu_q, nu_s]``
+  (uint8 codes, float32 scales).
 
 The reverse direction returns the port's state in the same layout, for
-comparing final states. This module imports neither JAX nor the JAX
+comparing final states. numpy has no bfloat16 of its own: the JAX side's
+bfloat16 leaves arrive as ``ml_dtypes`` arrays, which ``torch.from_numpy``
+refuses, so both directions go through a uint16 view. ``load_dense`` reads
+any 2-byte array into a bfloat16 leaf bit for bit, and ``dense_to_numpy``
+returns bfloat16 leaves as uint16 bit patterns (compare them with
+``np.asarray(leaf).view(np.uint16)``). This module imports neither JAX nor the JAX
 package: the caller does the ``jax.tree.leaves`` on its side.
 """
 
@@ -46,12 +53,14 @@ def tree_from_numpy(tree, device: DeviceLike = None):
 
 def load_dense(table: DenseTable, params, opt_leaves) -> None:
     """Load the JAX table's padded flat params and its opt-state leaves
-    (``jax.tree.leaves(opt_state)``, in that order)."""
+    (``jax.tree.leaves(opt_state)``, in that order); bfloat16 leaves are
+    read bit for bit."""
     table.load_state_dict({"params": np.asarray(params),
                            "opt_state": [np.asarray(x) for x in opt_leaves]})
 
 
 def dense_to_numpy(table: DenseTable) -> tuple[np.ndarray, list]:
-    """``(params, opt_leaves)`` in the JAX package's layout and leaf order."""
+    """``(params, opt_leaves)`` in the JAX package's layout and leaf order,
+    bfloat16 leaves as their uint16 bit patterns."""
     state = table.state_dict()
     return state["params"], state["opt_state"]

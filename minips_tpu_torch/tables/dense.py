@@ -26,14 +26,33 @@ import torch
 from minips_tpu_torch.parallel.mesh import (WORLD_SIZE, DeviceLike,
                                             resolve_device)
 from minips_tpu_torch.parallel.partition import RangePartitioner
-from minips_tpu_torch.tables.updaters import LearningRate, make_updater
+from minips_tpu_torch.tables.updaters import (Adam8bitState, LearningRate,
+                                              Updater, make_updater,
+                                              masked_merge_adam8)
 from minips_tpu_torch.utils.tree import PyTree, tree_leaves, tree_map, \
     tree_rebuild
 
 
 def _host(t: torch.Tensor) -> np.ndarray:
-    """A host copy that later in-place updates of ``t`` cannot change."""
-    return t.detach().to("cpu", copy=True).numpy()
+    """A host copy that later in-place updates of ``t`` cannot change.
+    numpy has no bfloat16: a bfloat16 tensor comes out as its uint16 bit
+    pattern."""
+    t = t.detach().to("cpu", copy=True)
+    return (t.view(torch.uint16) if t.dtype == torch.bfloat16 else t).numpy()
+
+
+def _tensor_like(arr, like: torch.Tensor) -> torch.Tensor:
+    """``arr`` as a tensor of ``like``'s dtype and device. Into a bfloat16
+    leaf, a 2-byte array that is not float16 (the uint16 bit pattern of
+    :func:`_host`, or JAX's ``ml_dtypes`` bfloat16) is read bit for bit."""
+    arr = np.asarray(arr)
+    if like.dtype == torch.bfloat16 and arr.dtype.itemsize == 2 \
+            and arr.dtype != np.float16:
+        t = torch.from_numpy(np.ascontiguousarray(arr).view(np.uint16)
+                             .copy()).view(torch.bfloat16)
+    else:
+        t = torch.tensor(arr)
+    return t.to(device=like.device, dtype=like.dtype)
 
 
 def ravel(tree: PyTree, device: Optional[torch.device] = None):
@@ -84,9 +103,13 @@ class DenseTable:
         updater: str = "sgd",
         lr: LearningRate = 0.1,
         grad_reduce: str = "mean",
+        tx: Optional[Updater] = None,
         updater_kwargs: Optional[dict] = None,
         device: DeviceLike = None,
     ):
+        """``tx`` is an updater built by the caller (it replaces
+        ``updater``, ``lr`` and ``updater_kwargs``), as in the JAX
+        package."""
         if grad_reduce not in ("mean", "sum"):
             raise ValueError("grad_reduce must be 'mean' or 'sum'")
         self.name = name
@@ -97,7 +120,12 @@ class DenseTable:
         flat, self._unravel = ravel(template, self.device)
         self.num_keys = int(flat.shape[0])
         kw = dict(updater_kwargs or {})
-        self.partitioner = RangePartitioner(self.num_keys, self.num_shards)
+        # adam8's scales cover whole blocks of the flat vector, so each
+        # range shard holds whole blocks: the padding aligns to the block
+        # (padding keys are zeros with zero gradients and never move)
+        align = int(kw.get("block", 256)) if updater == "adam8" else 1
+        self.partitioner = RangePartitioner(self.num_keys, self.num_shards,
+                                            align=align)
         self.padded = self.partitioner.padded
         # global-norm clipping is the table's, over the whole gradient (the
         # JAX table intercepts it the same way for its sharded update)
@@ -109,7 +137,16 @@ class DenseTable:
                     f"decay_mask ravels to {tuple(mflat.shape)}, params to "
                     f"{tuple(flat.shape)} — the mask must be params-shaped")
             kw["decay_mask"] = self._pad(mflat.to(flat.dtype))
-        self.tx = make_updater(updater, lr, **kw)
+        self.tx = tx if tx is not None else make_updater(updater, lr, **kw)
+        shard = self.partitioner.shard_size
+        for _, block in self.tx.adam8:
+            if shard % block:
+                raise ValueError(
+                    f"quantized opt state with block={block} does not align "
+                    f"with shard size {shard}: each contiguous range shard "
+                    "must hold whole blocks (use updater='adam8' so the "
+                    "table aligns its padding, or pick a block that divides "
+                    "the shard size)")
         self.params = self._pad(flat)
         self.opt_state = self.tx.init(self.params)
 
@@ -163,11 +200,26 @@ class DenseTable:
         updates, new_opt = self.tx.update(g, self.opt_state, self.params)
         if mask is not None:
             updates = updates * mask
-            new_opt = [torch.where(mask > 0, new, old)
-                       if new.shape == self.params.shape else new
-                       for new, old in zip(new_opt, self.opt_state)]
+            new_opt = self._restore_untouched(new_opt, mask)
         self.params = self.params + updates
         self.opt_state = new_opt
+
+    def _restore_untouched(self, new_opt: list, mask: torch.Tensor) -> list:
+        """The state after a masked push: untouched keys keep their old
+        elementwise state. adam8's codes and scales are restored block by
+        block (``masked_merge_adam8``): restoring the codes alone would
+        pair them with the new scales."""
+        old, out = self.opt_state, list(new_opt)
+        quantized = set()
+        for at, _ in self.tx.adam8:
+            out[at:at + 5] = masked_merge_adam8(
+                Adam8bitState(*new_opt[at:at + 5]),
+                Adam8bitState(*old[at:at + 5]), mask)
+            quantized.update(range(at, at + 5))
+        for i, (new, prev) in enumerate(zip(new_opt, old)):
+            if i not in quantized and new.shape == self.params.shape:
+                out[i] = torch.where(mask > 0, new, prev)
+        return out
 
     # ------------------------------------------------------------- fused step
     def make_step(
@@ -260,7 +312,8 @@ class DenseTable:
     # ------------------------------------------------------------- state I/O
     def state_dict(self) -> dict:
         """Host copies: ``params`` (padded flat) and ``opt_state`` (the
-        leaves in ``jax.tree.leaves`` order)."""
+        leaves in ``jax.tree.leaves`` order; bfloat16 leaves as their uint16
+        bit patterns)."""
         return {"params": _host(self.params),
                 "opt_state": [_host(x) for x in self.opt_state]}
 
@@ -277,11 +330,11 @@ class DenseTable:
                 "(different updater?)")
         loaded = []
         for cur, new in zip(self.opt_state, new_leaves):
-            t = torch.tensor(np.asarray(new))
-            if tuple(t.shape) != tuple(cur.shape):
-                raise ValueError(f"opt state leaf shape {tuple(t.shape)} "
+            shape = tuple(np.shape(new))
+            if shape != tuple(cur.shape):
+                raise ValueError(f"opt state leaf shape {shape} "
                                  f"does not match {tuple(cur.shape)}")
-            loaded.append(t.to(device=self.device, dtype=cur.dtype))
+            loaded.append(_tensor_like(new, cur))
         self.params = params.to(device=self.device, dtype=self.params.dtype)
         self.opt_state = loaded
 

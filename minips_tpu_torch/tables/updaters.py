@@ -12,15 +12,26 @@ An updater here is a pair of plain functions over one flat tensor:
 (updates, state)``, with ``params + updates`` the new parameters. The
 state is a list of tensors in the order of ``jax.tree.leaves`` of the
 optax state it mirrors (adagrad ``[sum_of_squares]``, adam
-``[count, mu, nu]``, a schedule appends its ``count``), so the two
-packages exchange optimizer state leaf by leaf. Updates are functional:
-the dense vector is small, and no table-sized state is copied.
+``[count, mu, nu]``, ``adam_bf16`` the same in bfloat16, ``adam8``
+``[count, mu_q, mu_s, nu_q, nu_s]``, a schedule appends its ``count``), so
+the two packages exchange optimizer state leaf by leaf. Updates are
+functional: they return new tensors and write none they were given.
+
+``adam_bf16`` and ``adam8`` are the JAX package's optimizer-state memory
+levers: Adam whose moments are stored in bfloat16, or as blockwise uint8
+log-codebook codes with one float32 absmax scale per ``block`` elements.
+Their math runs in float32 with the JAX code's constants and operation
+order (``b1`` and ``1 - b1`` rounded to float32 first, ``b1 ** t`` in
+float32), so the stored moments agree with the JAX package's bit for bit
+wherever the float32 moments do.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Callable, NamedTuple, Optional, Union
 
+import numpy as np
 import torch
 
 UPDATERS = ("sgd", "adagrad", "adam", "adamw", "adam_bf16", "adam8")
@@ -37,6 +48,10 @@ class Updater(NamedTuple):
     update: Callable[[torch.Tensor, list, torch.Tensor],
                      tuple[torch.Tensor, list]]
     num_leaves: int  # len(init(params)): fixed per transform
+    # (offset, block) of each Adam8bitState among the state's leaves: the
+    # masked push restores those five leaves block by block, not
+    # elementwise (``masked_merge_adam8``)
+    adam8: tuple = ()
 
 
 def _count0(params: torch.Tensor) -> torch.Tensor:
@@ -51,6 +66,11 @@ def _safe_increment(count: torch.Tensor) -> torch.Tensor:
 def chain(*parts: Updater) -> Updater:
     """optax.chain: updates flow through each part in turn; the state is
     the parts' leaves concatenated in order."""
+    adam8, offset = [], 0
+    for p in parts:
+        adam8.extend((offset + at, block) for at, block in p.adam8)
+        offset += p.num_leaves
+
     def init(params):
         return [leaf for p in parts for leaf in p.init(params)]
 
@@ -62,7 +82,7 @@ def chain(*parts: Updater) -> Updater:
             i += p.num_leaves
         return updates, new_state
 
-    return Updater(init, update, sum(p.num_leaves for p in parts))
+    return Updater(init, update, offset, tuple(adam8))
 
 
 def _stateless(fn) -> Updater:
@@ -117,6 +137,182 @@ def scale_by_adam(b1: float = 0.9, b2: float = 0.999,
         update, 3)
 
 
+def _f32(x: float) -> float:
+    """``x`` rounded to float32, as ``jnp.float32(x)`` gives it."""
+    return float(np.float32(x))
+
+
+def _bias_corrections(count: torch.Tensor, b1: float, b2: float):
+    """``1 - b1 ** t`` and ``1 - b2 ** t`` in float32 from the float32
+    count, as the JAX package's low-precision Adam computes them."""
+    t = count.to(torch.float32)
+    one = torch.ones((), dtype=torch.float32, device=count.device)
+    return (one - torch.pow(one * b1, t), one - torch.pow(one * b2, t))
+
+
+def scale_by_adam_lowp(b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
+                       state_dtype="bfloat16") -> Updater:
+    """Adam whose both moments are stored in ``state_dtype`` (bfloat16 by
+    default): the math runs in float32 and the new moments are cast down
+    on store. State ``[count, mu, nu]``; ``count`` increments without
+    saturating, as in the JAX code."""
+    sd = (getattr(torch, state_dtype) if isinstance(state_dtype, str)
+          else state_dtype)
+    b1f, b2f = _f32(b1), _f32(b2)
+    c1, c2 = _f32(np.float32(1) - np.float32(b1)), \
+        _f32(np.float32(1) - np.float32(b2))
+
+    def init(params):
+        return [_count0(params), torch.zeros_like(params, dtype=sd),
+                torch.zeros_like(params, dtype=sd)]
+
+    def update(g, state, params):
+        count, mu, nu = state
+        count = count + 1
+        g = g.to(torch.float32)
+        # two independent computations, one per moment, as the JAX code's
+        # two tree maps
+        m_new = b1f * mu.to(torch.float32) + c1 * g
+        v_new = b2f * nu.to(torch.float32) + c2 * torch.square(g)
+        bc1, bc2 = _bias_corrections(count, b1f, b2f)
+        out = (m_new / bc1) / (torch.sqrt(v_new / bc2) + eps)
+        return out, [count, m_new.to(sd), v_new.to(sd)]
+
+    return Updater(init, update, 3)
+
+
+class Adam8bitState(NamedTuple):
+    """adam8's state, in the JAX package's leaf order."""
+    count: torch.Tensor
+    mu_q: torch.Tensor  # uint8 codes, params-shaped
+    mu_s: torch.Tensor  # float32 absmax scales, one per block
+    nu_q: torch.Tensor
+    nu_s: torch.Tensor
+
+
+@functools.lru_cache(maxsize=None)
+def _codebook_np(signed: bool) -> np.ndarray:
+    """The blockwise-dynamic 8-bit codebooks, built as the JAX package
+    builds them (``np.logspace`` in float64, then float32), so that both
+    give the same codes. Log-spaced magnitudes keep a block's small
+    elements' relative precision next to an outlier.
+
+    signed (m): 255 codes {-1..-1e-6, 0, 1e-6..1};
+    unsigned (v): 256 codes {0, 1e-7..1}."""
+    if signed:
+        mags = np.logspace(-6, 0, 127)
+        vals = np.concatenate([-mags[::-1], [0.0], mags])
+    else:
+        vals = np.concatenate([[0.0], np.logspace(-7, 0, 255)])
+    return np.asarray(vals, np.float32)
+
+
+def _codebook(signed: bool, device) -> torch.Tensor:
+    return torch.from_numpy(_codebook_np(signed)).to(device)
+
+
+def _quantize_block(x: torch.Tensor, block: int, signed: bool = True):
+    """Normalize each block by its absmax, then snap to the nearest code
+    (ties to the upper code). Returns (uint8 codes, float32 scales)."""
+    cb = _codebook(signed, x.device)
+    xb = x.reshape(-1, block)
+    s = torch.amax(torch.abs(xb), dim=1)
+    xn = xb / torch.clamp(s, min=1e-30)[:, None]
+    # jnp.searchsorted's side="left"; int32 indices, not int64
+    idx = torch.searchsorted(cb, xn, out_int32=True).clamp_(1, cb.numel() - 1)
+    left = torch.index_select(cb, 0, (idx - 1).reshape(-1)).view_as(xn)
+    right = torch.index_select(cb, 0, idx.reshape(-1)).view_as(xn)
+    q = torch.where(xn - left < right - xn, idx - 1, idx)
+    if not signed:
+        # a positive second moment far below the block's absmax would snap
+        # to code 0 and be stored as exactly zero, which spikes the next
+        # update; it goes up to the floor code instead
+        q = torch.where((xn > 0) & (q == 0), 1, q)
+    return q.to(torch.uint8).reshape(-1), s
+
+
+def _dequantize_block(q: torch.Tensor, s: torch.Tensor, block: int,
+                      signed: bool = True) -> torch.Tensor:
+    cb = _codebook(signed, q.device)
+    vals = torch.index_select(cb, 0, q.reshape(-1).to(torch.int32))
+    return (vals.view(-1, block) * s[:, None]).reshape(-1)
+
+
+def masked_merge_adam8(new_state: Adam8bitState, old_state: Adam8bitState,
+                       mask: torch.Tensor) -> Adam8bitState:
+    """Block-granular masked restore of quantized moments. A block with no
+    touched key gets its old codes and scale back exactly; a block that
+    mixes touched and untouched keys is merged in float32 (both states
+    dequantized, selected by ``mask``) and quantized again, so its
+    untouched keys take one quantize round trip and never a rescale
+    against another absmax. An elementwise restore of the codes alone
+    would pair them with the new scales. ``block`` is read off the state
+    (codes are params-long, scales one per block)."""
+    block = new_state.mu_q.shape[0] // new_state.mu_s.shape[0]
+    keep = mask > 0
+    m = torch.where(keep,
+                    _dequantize_block(new_state.mu_q, new_state.mu_s, block),
+                    _dequantize_block(old_state.mu_q, old_state.mu_s, block))
+    v = torch.where(keep,
+                    _dequantize_block(new_state.nu_q, new_state.nu_s, block,
+                                      signed=False),
+                    _dequantize_block(old_state.nu_q, old_state.nu_s, block,
+                                      signed=False))
+    mq, ms = _quantize_block(m, block)
+    vq, vs = _quantize_block(v, block, signed=False)
+    touched = torch.amax(mask.reshape(-1, block), dim=1) > 0
+    telem = torch.repeat_interleave(touched, block)
+    return Adam8bitState(
+        new_state.count,
+        torch.where(telem, mq, old_state.mu_q),
+        torch.where(touched, ms, old_state.mu_s),
+        torch.where(telem, vq, old_state.nu_q),
+        torch.where(touched, vs, old_state.nu_s))
+
+
+def scale_by_adam_8bit(b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
+                       block: int = 256) -> Updater:
+    """Adam with blockwise-quantized 8-bit moments: uint8 log-codebook
+    codes plus one float32 absmax scale per ``block`` elements (about
+    2 + 8/block bytes of state a parameter against Adam's 8),
+    dequantized to float32 for the update and quantized again on store.
+    It runs on a dense table's flat vector, whose length must divide by
+    ``block`` (the table aligns its padding to the block). State
+    :class:`Adam8bitState`, as a list in its leaf order."""
+    b1f, b2f = _f32(b1), _f32(b2)
+    c1, c2 = _f32(np.float32(1) - np.float32(b1)), \
+        _f32(np.float32(1) - np.float32(b2))
+
+    def init(params):
+        if params.ndim != 1 or params.shape[0] % block:
+            raise ValueError(
+                "adam8 runs on DenseTable's flat raveled vector with "
+                f"length divisible by block={block}; got shape "
+                f"{tuple(params.shape)}")
+        n, dev = params.shape[0], params.device
+        return [_count0(params),
+                torch.full((n,), 127, dtype=torch.uint8, device=dev),  # 0.0
+                torch.zeros(n // block, dtype=torch.float32, device=dev),
+                torch.zeros(n, dtype=torch.uint8, device=dev),         # 0.0
+                torch.zeros(n // block, dtype=torch.float32, device=dev)]
+
+    def update(g, state, params):
+        st = Adam8bitState(*state)
+        g = g.to(torch.float32)
+        count = st.count + 1
+        m = _dequantize_block(st.mu_q, st.mu_s, block)
+        v = _dequantize_block(st.nu_q, st.nu_s, block, signed=False)
+        m_new = b1f * m + c1 * g
+        v_new = b2f * v + c2 * g * g   # ((1 - b2) * g) * g, as in JAX
+        bc1, bc2 = _bias_corrections(count, b1f, b2f)
+        out = (m_new / bc1) / (torch.sqrt(v_new / bc2) + eps)
+        mq, ms = _quantize_block(m_new, block)
+        vq, vs = _quantize_block(v_new, block, signed=False)
+        return out, [count, mq, ms, vq, vs]
+
+    return Updater(init, update, 5, ((0, block),))
+
+
 def add_decayed_weights(weight_decay: float) -> Updater:
     return _stateless(lambda g, params: g + weight_decay * params)
 
@@ -146,8 +342,9 @@ def scale_by_learning_rate(lr: LearningRate) -> Updater:
 
 def make_updater(name: str, lr: LearningRate, **kwargs) -> Updater:
     """The port of ``make_updater``: ``sgd`` (``momentum``), ``adagrad``
-    (``initial_accumulator_value``), ``adam`` and ``adamw``
-    (``b1``, ``b2``; ``weight_decay`` and ``decay_mask`` for adamw).
+    (``initial_accumulator_value``), ``adam``, ``adamw``, ``adam_bf16``
+    and ``adam8`` (``b1``, ``b2``; ``weight_decay`` and ``decay_mask`` for
+    adamw, ``state_dtype`` for adam_bf16, ``block`` for adam8).
     ``clip_norm`` prepends global-norm clipping over the vector this
     updater sees."""
     name = name.lower()
@@ -169,10 +366,19 @@ def make_updater(name: str, lr: LearningRate, **kwargs) -> Updater:
                  else masked_weight_decay(wd, mask))
         parts = [scale_by_adam(kwargs.get("b1", 0.9), kwargs.get("b2", 0.999)),
                  decay, scale_by_learning_rate(lr)]
-    elif name in ("adam_bf16", "adam8"):
-        raise NotImplementedError(
-            f"updater {name!r} is not ported yet (ROADMAP.md queue 1, "
-            "tables/updaters.py: low-precision Adam moments)")
+    elif name == "adam_bf16":
+        # both moments stored bf16: half Adam's optimizer-state bytes
+        parts = [scale_by_adam_lowp(kwargs.get("b1", 0.9),
+                                    kwargs.get("b2", 0.999),
+                                    state_dtype=kwargs.get("state_dtype",
+                                                           "bfloat16")),
+                 scale_by_learning_rate(lr)]
+    elif name == "adam8":
+        # blockwise int8 moments: about a quarter of Adam's state bytes
+        parts = [scale_by_adam_8bit(kwargs.get("b1", 0.9),
+                                    kwargs.get("b2", 0.999),
+                                    block=kwargs.get("block", 256)),
+                 scale_by_learning_rate(lr)]
     else:
         raise ValueError(
             f"unknown updater {name!r}; expected one of {UPDATERS}")

@@ -279,10 +279,11 @@ def test_updater_matches_optax(name, lr, kw):
         _close(got.numpy(), want, atol=1e-7, rtol=1e-6)
 
 
-@pytest.mark.parametrize("name", ["adam_bf16", "adam8"])
-def test_unported_updaters_name_the_roadmap(name):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tupd.make_updater(name, 1e-3)
+@pytest.mark.parametrize("name,leaves", [("adam_bf16", 3), ("adam8", 5)])
+def test_lowp_updaters_are_ported(name, leaves):
+    # held against the JAX package in test_torch_lowp_adam.py
+    tx = tupd.make_updater(name, 1e-3)
+    assert tx.num_leaves == len(tx.init(torch.zeros(512))) == leaves
     with pytest.raises(ValueError):
         tupd.make_updater("lion", 1e-3)
 
