@@ -8,9 +8,13 @@ CPU runs only when a caller asks for it (the parity tests do).
 
 Ported so far: the fused LR + MLP parameter-server training step
 (``apps/lrmlp.py``), whose every row gather runs through the hand-written
-CUDA kernel of ``ops/gather.py``, and the decoder LM's dense training step
+CUDA kernel of ``ops/gather.py``; the decoder LM's dense training step
 (``apps/lm.py``), whose attention runs through the hand-written flash
-kernels of ``ops/flash_attention.py``.
+kernels of ``ops/flash_attention.py``, with its optimizer state in float32,
+bfloat16 or blockwise int8; and the threaded ``Engine`` path
+(``core/engine.py``: worker threads pulling and pushing through the
+BSP/SSP/ASP controllers of ``consistency/``), which drives the
+Wide&Deep/DeepFM app (``apps/wide_deep_example.py``) beside its fused mode.
 """
 
 import torch

@@ -42,11 +42,23 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "need = {'minips_tpu_torch.ops.flash_attention',\n"
         "        'minips_tpu_torch.models.transformer',\n"
         "        'minips_tpu_torch.apps.lm',\n"
-        "        'minips_tpu_torch.parallel.ring_attention'}\n"
+        "        'minips_tpu_torch.parallel.ring_attention',\n"
+        "        'minips_tpu_torch.core.config',\n"
+        "        'minips_tpu_torch.core.engine',\n"
+        "        'minips_tpu_torch.consistency.controllers',\n"
+        "        'minips_tpu_torch.consistency.tracker',\n"
+        "        'minips_tpu_torch.obs.hist',\n"
+        "        'minips_tpu_torch.utils.timing',\n"
+        "        'minips_tpu_torch.utils.metrics',\n"
+        "        'minips_tpu_torch.utils.evaluation',\n"
+        "        'minips_tpu_torch.train.loop',\n"
+        "        'minips_tpu_torch.data.loader',\n"
+        "        'minips_tpu_torch.apps.common',\n"
+        "        'minips_tpu_torch.apps.wide_deep_example'}\n"
         "print(len(names), sorted(need - set(names)), bad)\n")
     assert r.returncode == 0, r.stderr
     count, rest = r.stdout.split(" ", 1)
-    assert int(count) >= 25 and rest.strip() == "[] []", r.stdout
+    assert int(count) >= 40 and rest.strip() == "[] []", r.stdout
 
 
 def test_importing_the_build_module_runs_nothing():
@@ -73,6 +85,12 @@ def test_importing_the_build_module_runs_nothing():
     "from minips_tpu_torch.apps.lrmlp import build_lrmlp; build_lrmlp(8)",
     "from minips_tpu_torch.apps.lm import build_lm; build_lm(2, 8, dim=64, "
     "depth=1, vocab=16)",
+    "from minips_tpu_torch.core.engine import Engine; "
+    "Engine().start_everything()",
+    "from minips_tpu_torch.data.loader import prefetch_to_device; "
+    "next(prefetch_to_device(iter([{}])))",
+    "import sys; sys.argv = ['wd', '--num_iters', '1']; "
+    "from minips_tpu_torch.apps.wide_deep_example import main; main()",
 ])
 def test_entry_points_default_to_cuda_and_raise_without_it(entry):
     _no_cuda()
