@@ -47,10 +47,30 @@ on failure:
    version's, one PyTorch call's and the least time the card could take,
    with the kernel's design (``wgmma`` or ``simt-vec``); the row gather
    also cold (L2 flushed before each launch, the time its bound is read
-   against), at the D = 128 pull's shape, and its host launch cost.
+   against), at the D = 128 pull's shape, and its host launch cost;
+10. LM low-precision state: ``build_lm(opt_state=...)`` at ``"bf16"``
+    (``adam_bf16``) and ``"int8"`` (``adam8``), 10 full-width steps each,
+    with finite and falling loss, each flash kernel launched once per
+    block per step, step time, tokens/s, ``opt_state_bytes`` and peak
+    device memory; one ``adam_bf16`` and one ``adam8`` update on the card
+    against the CPU port on the same gradient and state (the first 4 M
+    elements of the trained table's), stored state bit-identical and
+    updates within 1e-6 relative; the first 3 losses of a small LM at each
+    setting, card against CPU from the same weights;
+11. Wide&Deep through the Engine: ``apps/wide_deep_example.py``'s ``run``
+    at its defaults (tables of 2^18 rows, dim 8, batch 1024, 4 workers,
+    ``criteo_like(16384)``) for 50 iterations with a 0.2 holdout, in spmd
+    mode for Wide&Deep and DeepFM and in threaded mode under BSP, SSP with
+    s = 2 and ASP: finite and falling loss, the row gather launched twice
+    per worker step (plus two per holdout chunk), samples/s and the
+    holdout AUC; the loader's prefetch thread (pinned memory, copy stream)
+    against the host batches; threaded BSP with 1 worker against the CPU
+    port's first 3 losses from the same seed, and the device's idle share
+    over a threaded BSP run.
 
-The last two lines are a JSON object with every kernel's numbers and then
-``{"ok": true, "device": {...}}``. Without CUDA, or without the package
+The last two lines are a JSON object with every kernel's numbers (its
+launches on each path beside them) and then ``{"ok": true, "device":
+{...}}``. Without CUDA, or without the package
 beside it, the script exits non-zero and prints no result.
 """
 
@@ -126,6 +146,13 @@ LAUNCH_CALLS = 200  # host calls timed for the gather's launch cost
 # 3.35 TB/s unless the name says otherwise.
 MEM_BW = (("H100 PCIe", 2.0e12), ("H100 NVL", 3.9e12), ("H200", 4.8e12),
           ("H100", 3.35e12))
+LOWP_UPDATE_N = 4 << 20  # elements of the card-against-CPU update check
+LOWP_UPDATE_RTOL = 1e-6
+WD_ITERS = 50
+WD_WORKERS = 4
+WD_EVAL_FRAC = 0.2
+WD_EVAL_CHUNK = 8192  # evaluate_auc's chunk: one gather per table each
+WD_PROFILED_ITERS = 10
 
 
 def check(cond: bool, msg: str) -> None:
@@ -726,6 +753,7 @@ def main() -> int:
                "reps": LM_REPS, "step_ms": 1e3 * lm_med / LM_CHAIN,
                "tokens_per_s": LM_B * LM_T * LM_CHAIN / lm_med,
                "chain_s": lm_chain_s,
+               "opt_state_bytes": lm.opt_state_bytes,
                "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
     print("LM step time on the card (median of "
           f"{LM_REPS} chains): " + json.dumps(lm_step), flush=True)
@@ -909,6 +937,207 @@ def main() -> int:
         })
         print(f"{name} at the LM's shape: " + json.dumps(kernels[-1]),
               flush=True)
+    # ------------------------------------------ 10. LM low-precision state
+    from minips_tpu_torch.tables import updaters as tupd
+
+    lm_paths = {"f32": dict(lm_launches,
+                            opt_state_bytes=lm_step["opt_state_bytes"])}
+    as_int = {torch.float32: torch.int32, torch.bfloat16: torch.int16}
+    lowp = {}
+    for opt, updater in (("bf16", "adam_bf16"), ("int8", "adam8")):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        lm = build_lm(LM_B, LM_T, dim=LM_DIM, depth=LM_DEPTH, device=dev,
+                      seed=0, opt_state=opt)
+        torch.cuda.synchronize()
+        for name in flash:
+            getattr(tfa, name).launches = 0
+        losses_o = [float(x) for x in lm_steps(lm, LM_CHAIN)]
+        torch.cuda.synchronize()
+        launches_o = {name: getattr(tfa, name).launches for name in flash}
+        check(all(math.isfinite(x) for x in losses_o),
+              f"non-finite LM loss at opt_state {opt}: {losses_o}")
+        check(losses_o[-1] < losses_o[0],
+              f"LM loss did not fall at opt_state {opt}: {losses_o}")
+        for name in flash:
+            check(launches_o[name] == LM_DEPTH * LM_CHAIN,
+                  f"{name} launched {launches_o[name]} times in {LM_CHAIN} "
+                  f"steps at opt_state {opt}, expected "
+                  f"{LM_DEPTH * LM_CHAIN}")
+        chain_o = []
+        for _ in range(LM_REPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            last = lm_steps(lm, LM_CHAIN)[-1]
+            torch.cuda.synchronize()
+            chain_o.append(time.perf_counter() - t0)
+            check(math.isfinite(float(last)), "non-finite LM loss")
+        med = statistics.median(chain_o)
+        # one update on the card against the CPU port on the same gradient
+        # and state: the trained table's first LOWP_UPDATE_N elements
+        tx = tupd.make_updater(updater, 1e-3)
+        n_up = LOWP_UPDATE_N
+        blk = {"bf16": n_up, "int8": n_up // 256}
+        state = [x if x.dim() == 0 else
+                 x[:n_up if x.numel() == lm.table.padded else blk[opt]]
+                 for x in lm.table.opt_state]
+        gen = torch.Generator(device=dev).manual_seed(7)
+        g = torch.randn(n_up, generator=gen, device=dev) * 1e-3
+        p_up = lm.table.params[:n_up]
+        u_card, s_card = tx.update(g, state, p_up)
+        u_cpu, s_cpu = tx.update(g.cpu(), [x.cpu() for x in state],
+                                 p_up.cpu())
+        for a, b in zip(s_card, s_cpu):
+            a = a.cpu()
+            check(a.dtype == b.dtype and torch.equal(
+                a.view(as_int.get(a.dtype, a.dtype)),
+                b.view(as_int.get(b.dtype, b.dtype))),
+                f"{updater}: stored state differs between the card and the "
+                "CPU port")
+        rel = float(((u_card.cpu() - u_cpu).abs()
+                     / u_cpu.abs().clamp(min=1e-30)).max())
+        check(rel <= LOWP_UPDATE_RTOL, f"{updater}: card and CPU updates "
+              f"differ by {rel} relative > {LOWP_UPDATE_RTOL}")
+        lowp[opt] = {
+            "card": card, "updater": updater, "batch": LM_B, "seq": LM_T,
+            "chain": LM_CHAIN, "reps": LM_REPS,
+            "step_ms": 1e3 * med / LM_CHAIN,
+            "tokens_per_s": LM_B * LM_T * LM_CHAIN / med,
+            "chain_s": chain_o,
+            "opt_state_bytes": lm.opt_state_bytes,
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "losses": losses_o, "launches": launches_o,
+            "update_check": {"elements": n_up, "state": "bit-identical",
+                             "max_rel_err": rel}}
+        lm_paths[opt] = dict(launches_o, opt_state_bytes=lm.opt_state_bytes)
+        print(f"LM at opt_state {opt} ({updater}): " + json.dumps(lowp[opt]),
+              flush=True)
+        del lm, state, u_card, s_card, u_cpu, s_cpu, g
+
+        card_lm = build_lm(2, 256, device=dev, opt_state=opt, **small)
+        state = interop.dense_to_numpy(card_lm.table)
+        card_l = [float(x) for x in lm_steps(card_lm, CPU_STEPS)]
+        cpu_lm = build_lm(2, 256, device="cpu", opt_state=opt, **small)
+        interop.load_dense(cpu_lm.table, *state)
+        cpu_l = [float(x) for x in lm_steps(cpu_lm, CPU_STEPS)]
+        lm_diff = max(abs(a - b) for a, b in zip(card_l, cpu_l))
+        check(lm_diff <= LM_LOSS_TOL, f"small LM at opt_state {opt}: card "
+              f"and CPU losses differ by {lm_diff} > {LM_LOSS_TOL}: card "
+              f"{card_l} cpu {cpu_l}")
+        print(f"small LM at opt_state {opt}, card vs CPU port, first "
+              f"{CPU_STEPS} steps from the same weights: card {card_l} cpu "
+              f"{cpu_l}, max |loss diff| {lm_diff:.3e} (tolerance "
+              f"{LM_LOSS_TOL})", flush=True)
+        del card_lm, cpu_lm
+
+    # ------------------------------------- 11. Wide&Deep through the Engine
+    import argparse
+    import copy
+
+    from minips_tpu_torch.apps import wide_deep_example as wdx
+    from minips_tpu_torch.utils.metrics import MetricsLogger
+
+    def wd_run(mode, model, consistency, staleness, workers, iters,
+               device=dev):
+        cfg = copy.deepcopy(wdx.DEFAULT)
+        cfg.table.consistency, cfg.table.staleness = consistency, staleness
+        cfg.train.num_workers, cfg.train.num_iters = workers, iters
+        cfg.train.log_every = 0
+        args = argparse.Namespace(exec_mode=mode, model=model,
+                                  eval_frac=WD_EVAL_FRAC, dtype="float32",
+                                  device=str(device), data_file=None,
+                                  stream=False)
+        return wdx.run(cfg, args, MetricsLogger(None, verbose=False))
+
+    n_hold = int(16384 * WD_EVAL_FRAC)
+    eval_gathers = 2 * math.ceil(n_hold / WD_EVAL_CHUNK)
+    wd = {}
+    wd_launches = {}
+    for mode, model, consistency, staleness, workers in (
+            ("spmd", "widedeep", "bsp", 0, 1),
+            ("spmd", "deepfm", "bsp", 0, 1),
+            ("threaded", "widedeep", "bsp", 0, WD_WORKERS),
+            ("threaded", "widedeep", "ssp", 2, WD_WORKERS),
+            ("threaded", "widedeep", "asp", 0, WD_WORKERS)):
+        key = (f"{mode}_{model}" if mode == "spmd"
+               else f"{mode}_{consistency}{staleness or ''}")
+        torch.cuda.synchronize()
+        gather_rows.launches = 0
+        out = wd_run(mode, model, consistency, staleness, workers, WD_ITERS)
+        torch.cuda.synchronize()
+        n_k1 = gather_rows.launches
+        losses_w = out["losses"]
+        check(len(losses_w) == WD_ITERS
+              and all(math.isfinite(x) for x in losses_w),
+              f"Wide&Deep {key}: losses {losses_w}")
+        check(losses_w[-1] < losses_w[0],
+              f"Wide&Deep {key}: loss did not fall: {losses_w}")
+        steps = WD_ITERS * (workers if mode == "threaded" else 1)
+        check(n_k1 == 2 * steps + eval_gathers,
+              f"Wide&Deep {key}: gather_rows launched {n_k1} times, expected "
+              f"2 per worker step ({2 * steps}) and {eval_gathers} for the "
+              "holdout")
+        wd[key] = {"mode": mode, "model": model, "consistency": consistency,
+                   "staleness": staleness, "workers": workers,
+                   "iters": WD_ITERS, "loss_first": losses_w[0],
+                   "loss_last": losses_w[-1],
+                   "samples_per_s": out["samples_per_sec"],
+                   "holdout_auc": out["auc"], "gather_launches": n_k1,
+                   "gathers_per_worker_step": (n_k1 - eval_gathers) / steps}
+        wd_launches[f"wide_deep_{key}"] = n_k1
+        print(f"Wide&Deep {key}: " + json.dumps(wd[key]), flush=True)
+    del out
+
+    # the loader's prefetch thread: batches pinned and copied on its copy
+    # stream arrive on the card equal to the host batches
+    from minips_tpu_torch.data import synthetic
+    from minips_tpu_torch.data.loader import (BatchIterator,
+                                              prefetch_to_device)
+
+    wd_data = synthetic.criteo_like(16384, seed=0)
+    host_b = [b for b, _ in zip(BatchIterator(wd_data, 1024, seed=0),
+                                range(4))]
+    got_b = list(prefetch_to_device(iter(host_b), dev))
+    check(len(got_b) == 4 and all(
+        v.device.type == "cuda" and torch.equal(v.cpu(), torch.as_tensor(h[k]))
+        for g, h in zip(got_b, host_b) for k, v in g.items()),
+        "prefetch_to_device: the card's batches differ from the host's")
+    print("prefetch_to_device: 4 batches of 1024 rows copied from pinned "
+          "memory on the copy stream, equal to the host batches", flush=True)
+
+    card_w = wd_run("threaded", "widedeep", "bsp", 0, 1, CPU_STEPS)["losses"]
+    cpu_w = wd_run("threaded", "widedeep", "bsp", 0, 1, CPU_STEPS,
+                   device="cpu")["losses"]
+    wd_diff = max(abs(a - b) for a, b in zip(card_w, cpu_w))
+    check(wd_diff <= LOSS_TOL, f"Wide&Deep threaded BSP, 1 worker: card and "
+          f"CPU losses differ by {wd_diff} > {LOSS_TOL}: card {card_w} cpu "
+          f"{cpu_w}")
+    print(f"Wide&Deep threaded BSP, 1 worker, card vs CPU port, first "
+          f"{CPU_STEPS} steps from the same seed: card {card_w} cpu {cpu_w}, "
+          f"max |loss diff| {wd_diff:.3e} (tolerance {LOSS_TOL})", flush=True)
+
+    # the device's idle share over a whole threaded BSP run (tables built,
+    # WD_PROFILED_ITERS rounds of WD_WORKERS workers, holdout scored): the
+    # profiler's device busy time over the same run's unprofiled wall time
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    wd_run("threaded", "widedeep", "bsp", 0, WD_WORKERS, WD_PROFILED_ITERS)
+    torch.cuda.synchronize()
+    run_ms = 1e3 * (time.perf_counter() - t0)
+    wd_dev = device_time(torch, lambda: wd_run(
+        "threaded", "widedeep", "bsp", 0, WD_WORKERS, WD_PROFILED_ITERS),
+        1, run_ms)
+    wd_dev["run_ms"] = run_ms
+    wd_dev["rounds"] = WD_PROFILED_ITERS
+    print("Wide&Deep threaded BSP device time over one whole run "
+          "(torch.profiler): " + json.dumps(wd_dev), flush=True)
+
+    kernels[0]["launches_by_path"] = dict(lrmlp=main_launches["gather_rows"],
+                                          **wd_launches)
+    for k in kernels[1:]:
+        k["launches_by_path"] = {f"lm_{opt}": v[k["name"]]
+                                 for opt, v in lm_paths.items()}
+
     print(f"card: {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

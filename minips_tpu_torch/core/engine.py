@@ -114,7 +114,7 @@ class Info:
 
 
 class Engine:
-    """Driver: mesh bootstrap + tables + threaded task runner. ``device``
+    """Mesh bootstrap + tables + threaded task runner. ``device``
     is where every table lives, the card unless the caller says
     otherwise."""
 

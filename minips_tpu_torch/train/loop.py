@@ -1,4 +1,4 @@
-"""TrainLoop — the driver's Run() loop for SPMD apps.
+"""TrainLoop — the Run() loop of the SPMD apps.
 
 Threads together the pieces the reference scatters across Engine::Run and
 the app UDF (SURVEY.md §3.2-3.3): data iteration, the fused step, JSONL
@@ -34,7 +34,6 @@ class TrainLoop:
         warmup_steps: int = 2,
         step_offset: int = 0,
         profile_dir: Optional[str] = None,
-        profile_range: tuple[int, int] = (10, 13),
         prefetch: Optional[Callable[[Any], None]] = None,
         extra_metrics: Optional[Callable[[], dict]] = None,
     ):
@@ -42,7 +41,7 @@ class TrainLoop:
         self.data = data
         # ``prefetch(next_batch)`` is called with batch t+1 BEFORE
         # ``step(batch t)`` runs — the overlap hook for PS-backed steps:
-        # a sharded-PS app passes a callable that issues
+        # a sharded-PS app passes a callable that starts
         # ``table.prefetch_pull(keys_of(next_batch))`` so the pull round
         # trip rides under this step's compute (train/sharded_ps.py
         # pipeline). Costs one batch of lookahead in the data stream;

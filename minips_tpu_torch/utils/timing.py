@@ -29,7 +29,7 @@ _HISTS = ("pull_latency", "pull_blocked", "push_ack")
 
 class CommTimers:
     """Per-leg wire timing for the overlapped PS pipeline
-    (train/sharded_ps.py): pull issue→last-reply latency vs. the time the
+    (train/sharded_ps.py): pull send→last-reply latency vs. the time the
     caller actually spent BLOCKED waiting for it, and push send→ack
     latency. The interesting derived number is ``pull_overlap_fraction``
     — the share of pull latency hidden behind other work (1.0 = fully
@@ -51,7 +51,7 @@ class CommTimers:
     def __init__(self):
         self._lock = threading.Lock()
         self.pulls = 0
-        self.pull_latency_s = 0.0   # issue → last reply ARRIVED
+        self.pull_latency_s = 0.0   # sent → last reply ARRIVED
         self.pull_blocked_s = 0.0   # caller actually waiting in wait()
         self.push_acks = 0
         self.push_ack_latency_s = 0.0  # frame send → ack received
@@ -78,9 +78,9 @@ class CommTimers:
 
     def record_pull_rows(self, requested: int, wire: int,
                          hits: int = 0, lookups: int = 0) -> None:
-        """Per-issue row accounting: ``requested`` keys asked for,
+        """Per-request row accounting: ``requested`` keys asked for,
         ``wire`` unique miss rows actually sent to owners, and the row
-        cache's hit/lookup counts for this issue (0/0 when cache-off)."""
+        cache's hit/lookup counts for this request (0/0 when cache-off)."""
         with self._lock:
             self.pull_rows_requested += int(requested)
             self.pull_rows_wire += int(wire)

@@ -123,7 +123,7 @@ def test_sparse_table_via_engine():
     np.testing.assert_allclose(rows[0], rows[2], rtol=1e-6)
 
 
-def test_mltask_builder_api():
+def test_mltask_chained_setters():
     eng = make_engine(2, consistency="bsp")
     seen = []
     task = MLTask().set_lambda(
