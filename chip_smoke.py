@@ -25,8 +25,10 @@ on failure:
 3. kernels: the row gather against its plain PyTorch version on the card,
    bit-exact, at D 1, 2, 3, 4, 8, 16, 128 and 129, f32, bf16 and f16, N
    from 1 to 9 and the main path's, slot views that start 0 to 3 elements
-   into their buffer, out-of-range, boundary and repeated slots, and the
-   step's [B, 26] slot shape;
+   into their buffer, out-of-range, boundary and repeated slots, the
+   step's [B, 26] slot shape, and the Wide&Deep app's pulls on their own
+   inputs (both hashed tables' shapes and salts, a worker batch's
+   [1024, 26] keys and a holdout chunk's [8192, 26]);
 4. hash: the key hash on the card, bit-identical to its numpy twin;
 5. LR + MLP path: 20 steps of both models, with finite and falling loss,
    the row gather's launch count, the same first 3 steps on the CPU port
@@ -52,7 +54,9 @@ on failure:
     (``adam_bf16``) and ``"int8"`` (``adam8``), 10 full-width steps each,
     with finite and falling loss, each flash kernel launched once per
     block per step, step time, tokens/s, ``opt_state_bytes`` and peak
-    device memory; one ``adam_bf16`` and one ``adam8`` update on the card
+    device memory, and the memory one update of the whole table takes
+    above what was allocated before it (also at f32, in phase 8); one
+    ``adam_bf16`` and one ``adam8`` update on the card
     against the CPU port on the same gradient and state (the first 4 M
     elements of the trained table's), stored state bit-identical and
     updates within 1e-6 relative; the first 3 losses of a small LM at each
@@ -62,8 +66,8 @@ on failure:
     ``criteo_like(16384)``) for 50 iterations with a 0.2 holdout, in spmd
     mode for Wide&Deep and DeepFM and in threaded mode under BSP, SSP with
     s = 2 and ASP: finite and falling loss, the row gather launched twice
-    per worker step (plus two per holdout chunk), samples/s and the
-    holdout AUC; the loader's prefetch thread (pinned memory, copy stream)
+    per worker step (plus two per holdout chunk), samples/s (both modes
+    leave out the first two steps) and the holdout AUC; the loader's prefetch thread (pinned memory, copy stream)
     against the host batches; threaded BSP with 1 worker against the CPU
     port's first 3 losses from the same seed, and the device's idle share
     over a threaded BSP run.
@@ -421,6 +425,21 @@ def attention_work(B, Tq, Tk, H, Hk, D, q_off, k_off, causal, item):
         "flash_bwd_dkv": 2 * qb + 4 * kb + 2 * rows}         # lse, dvec; out
 
 
+def update_peak_gb(torch, table) -> float:
+    """Device memory that one optimizer update of the whole table takes
+    above what was allocated before it: the update alone, outside the
+    step, on a gradient of the table's size."""
+    g = torch.full_like(table.params, 1e-3)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = table.tx.update(g, table.opt_state, table.params)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    del out, g
+    return peak / 1e9
+
+
 def device_time(torch, run, steps: int, step_ms: float) -> dict:
     """Where a step's device time goes: kernel intervals from the profiler
     over ``run()`` (``steps`` steps), beside the unprofiled step time (the
@@ -461,8 +480,12 @@ def main() -> int:
     import numpy as np
 
     from minips_tpu_torch import interop
+    from minips_tpu_torch.apps import wide_deep_example as wdx
     from minips_tpu_torch.apps.lm import build_lm
     from minips_tpu_torch.apps.lrmlp import build_lrmlp
+    from minips_tpu_torch.data import synthetic
+    from minips_tpu_torch.data.loader import (BatchIterator,
+                                              prefetch_to_device)
     from minips_tpu_torch.ops import _build
     from minips_tpu_torch.ops.gather import _launcher as gather_launcher
     from minips_tpu_torch.ops.gather import (gather_rows,
@@ -545,11 +568,31 @@ def main() -> int:
         compare(torch.randn((S, d), device=dev), torch.as_tensor(
             rng.integers(0, S, (B, 26)), dtype=torch.int32, device=dev))
         cases += 1
+    # the Wide&Deep app's pulls on their own inputs: each hashed table's
+    # shape and salt, a worker batch's [1024, 26] categorical keys and a
+    # holdout chunk's [8192, 26], hashed as the table hashes them (a random
+    # table of the same shape in place of the app's, whose wide rows start
+    # at zero)
+    _, wd_tables = wdx.build(wdx.DEFAULT, use_fm=False, device=dev)
+    wd_data = synthetic.criteo_like(16384, seed=0)
+    wd_bs = wdx.DEFAULT.train.batch_size
+    wd_keys = (next(iter(BatchIterator(wd_data, wd_bs, seed=0)))["cat"],
+               wd_data["cat"][:WD_EVAL_CHUNK])
+    wd_cases = []
+    for t in wd_tables[:2]:
+        emb = torch.randn_like(t.emb)
+        for keys in wd_keys:
+            slots = t.slots_of(keys)
+            compare(emb, slots)
+            wd_cases.append((t.name, tuple(emb.shape), tuple(slots.shape)))
+            cases += 1
+    del wd_tables
     print(f"gather_rows: {cases} cases bit-exact against the plain version "
           f"(D {GATHER_DIMS} x N {(*GATHER_SMALL_NS, n_main)} x slot views "
           f"{GATHER_OFFSETS} elements into their buffer x f32/bf16/f16; "
           "out-of-range and boundary slots inside 4-slot groups, repeated "
-          f"rows; [{B}, 26] slots at D 1 and 8)", flush=True)
+          f"rows; [{B}, 26] slots at D 1 and 8; the Wide&Deep pulls' hashed "
+          f"keys, (table, rows, slots): {wd_cases})", flush=True)
 
     # ------------------------------------------------------------ 4. hash
     keys = np.concatenate([
@@ -754,7 +797,8 @@ def main() -> int:
                "tokens_per_s": LM_B * LM_T * LM_CHAIN / lm_med,
                "chain_s": lm_chain_s,
                "opt_state_bytes": lm.opt_state_bytes,
-               "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+               "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+               "update_peak_gb": update_peak_gb(torch, lm.table)}
     print("LM step time on the card (median of "
           f"{LM_REPS} chains): " + json.dumps(lm_step), flush=True)
     print("LM device time per step (torch.profiler): " + json.dumps(
@@ -1006,6 +1050,7 @@ def main() -> int:
             "chain_s": chain_o,
             "opt_state_bytes": lm.opt_state_bytes,
             "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "update_peak_gb": update_peak_gb(torch, lm.table),
             "losses": losses_o, "launches": launches_o,
             "update_check": {"elements": n_up, "state": "bit-identical",
                              "max_rel_err": rel}}
@@ -1034,7 +1079,6 @@ def main() -> int:
     import argparse
     import copy
 
-    from minips_tpu_torch.apps import wide_deep_example as wdx
     from minips_tpu_torch.utils.metrics import MetricsLogger
 
     def wd_run(mode, model, consistency, staleness, workers, iters,
@@ -1090,11 +1134,6 @@ def main() -> int:
 
     # the loader's prefetch thread: batches pinned and copied on its copy
     # stream arrive on the card equal to the host batches
-    from minips_tpu_torch.data import synthetic
-    from minips_tpu_torch.data.loader import (BatchIterator,
-                                              prefetch_to_device)
-
-    wd_data = synthetic.criteo_like(16384, seed=0)
     host_b = [b for b, _ in zip(BatchIterator(wd_data, 1024, seed=0),
                                 range(4))]
     got_b = list(prefetch_to_device(iter(host_b), dev))

@@ -47,6 +47,9 @@ DEFAULT = Config(
     train=TrainConfig(batch_size=1024, num_iters=200),
 )
 NUM_DENSE, NUM_CAT = 13, 26
+# steps left out of a rate, as TrainLoop's StepTimer leaves out on the
+# spmd path
+WARMUP_STEPS = 2
 
 
 def build(cfg: Config, *, use_fm: bool, seed: int = 0,
@@ -150,9 +153,8 @@ def _run_threaded(cfg: Config, args, metrics, data, holdout, *,
     """Reference-semantics worker threads: each pulls the batch's rows of
     both hashed tables (two row gathers) and the deep tower through the
     consistency gate, takes the gradients by autograd, pushes them and
-    clocks. ``samples_per_sec`` counts every worker's batches over the
-    wall time of the whole threaded run (the JAX package reports 0.0
-    here)."""
+    clocks. ``samples_per_sec`` is measured as on the spmd path (the JAX
+    package reports 0.0 here): see :func:`_steady_rate`."""
     from minips_tpu_torch.apps.common import threaded_train
     from minips_tpu_torch.consistency import make_controller
     from minips_tpu_torch.core.engine import Engine
@@ -178,8 +180,10 @@ def _run_threaded(cfg: Config, args, metrics, data, holdout, *,
         return loss.detach(), gw, ge, tree_rebuild(deep_params, iter(gd))
 
     NW = engine.num_workers
+    starts = [[] for _ in range(NW)]  # each worker's step start times
 
     def step_fn(info, batch):
+        starts[info.worker_id].append(time.perf_counter())
         wt, et, dt = (info.table(n) for n in ("wide", "emb", "deep"))
         cats = torch.as_tensor(batch["cat"], device=device)
         w_rows = wt.pull(keys=cats)  # [B, NUM_CAT, 1]
@@ -201,13 +205,11 @@ def _run_threaded(cfg: Config, args, metrics, data, holdout, *,
     n_rows = len(data["y"])
     per_worker = [min(cfg.train.batch_size, max(len(s) // 2, 1))
                   for s in np.array_split(np.arange(n_rows), NW)]
-    t0 = time.perf_counter()
     mean_losses = threaded_train(engine, cfg, data, step_fn,
                                  clock_tables=["wide", "emb", "deep"])
     if device.type == "cuda":
         torch.cuda.synchronize(device)
-    seconds = time.perf_counter() - t0
-    samples_per_sec = sum(per_worker) * len(mean_losses) / seconds
+    samples_per_sec = _steady_rate(starts, per_worker, time.perf_counter())
     deep_params = deep_t.pull()
     engine.stop_everything()
     metrics.log(final_loss=mean_losses[-1], samples_per_sec=samples_per_sec)
@@ -215,6 +217,21 @@ def _run_threaded(cfg: Config, args, metrics, data, holdout, *,
         _make_predict(wide_t, emb_t, deep_params, use_fm), holdout,
         {"losses": mean_losses, "samples_per_sec": samples_per_sec,
          "tables": (wide_t, emb_t, deep_t)}, metrics)
+
+
+def _steady_rate(starts: list, batch_sizes: list, end: float,
+                 warmup: int = WARMUP_STEPS) -> float:
+    """Samples/s of a threaded run on the spmd path's yardstick: the clock
+    starts once every worker has finished its first ``warmup`` steps and
+    counts the batches of the steps begun since, up to ``end``. A worker
+    begins a step when its previous one has ended (loss read on the host,
+    tables clocked). 0.0 if a worker took no step after its warm-up, as
+    ``StepTimer`` gives."""
+    if any(len(s) <= warmup for s in starts):
+        return 0.0
+    t0 = max(s[warmup] for s in starts)
+    n = sum(b * sum(t >= t0 for t in s) for s, b in zip(starts, batch_sizes))
+    return n / (end - t0) if end > t0 else 0.0
 
 
 def _flags(parser):

@@ -1,10 +1,10 @@
 """Engine — the port of ``minips_tpu/core/engine.py``: the threaded
 parameter-server path with the reference programming model.
 
-- ``start_everything`` builds the one-card mesh (``parallel/mesh.py``):
-  the device every table lives on and a ``data`` axis of 1. Logical
-  workers default to that size and may exceed it; they then timeshare the
-  card, as in the JAX package.
+- ``start_everything`` resolves the device every table lives on
+  (``parallel/mesh.py``; the JAX package builds its mesh here). Logical
+  workers default to the number of devices, 1, and may exceed it; they
+  then timeshare the card, as in the JAX package.
 - ``create_table`` allocates a dense or sparse table on that device plus
   its BSP/SSP/ASP consistency controller.
 - ``run(MLTask)`` starts one host thread per logical worker, running the
@@ -26,7 +26,8 @@ import torch
 
 from minips_tpu_torch.consistency import ConsistencyController, make_controller
 from minips_tpu_torch.core.config import TableConfig
-from minips_tpu_torch.parallel.mesh import DeviceLike, make_mesh
+from minips_tpu_torch.parallel.mesh import (WORLD_SIZE, DeviceLike,
+                                            resolve_device)
 from minips_tpu_torch.tables.dense import DenseTable
 from minips_tpu_torch.tables.sparse import SparseTable
 
@@ -114,7 +115,7 @@ class Info:
 
 
 class Engine:
-    """Mesh bootstrap + tables + threaded task runner. ``device``
+    """Device bootstrap + tables + threaded task runner. ``device``
     is where every table lives, the card unless the caller says
     otherwise."""
 
@@ -122,7 +123,6 @@ class Engine:
                  device: DeviceLike = None):
         self._requested_workers = num_workers
         self._requested_device = device
-        self.mesh = None
         self.device: Optional[torch.device] = None
         self.tables: dict[str, Any] = {}
         self.controllers: dict[str, ConsistencyController] = {}
@@ -135,13 +135,12 @@ class Engine:
 
     # -------------------------------------------------------------- lifecycle
     def start_everything(self) -> "Engine":
-        """Mesh bootstrap. Logical workers default to the mesh's data-axis
-        size; more logical workers than devices is allowed (they timeshare
-        the card)."""
-        self.mesh = make_mesh(self._requested_device)
-        self.device = self.mesh.device
-        self.num_workers = (self._requested_workers
-                            or self.mesh.shape["data"])
+        """Device bootstrap (the JAX package builds its mesh here). Logical
+        workers default to the number of devices, ``WORLD_SIZE``; more
+        logical workers than devices is allowed (they timeshare the
+        card)."""
+        self.device = resolve_device(self._requested_device)
+        self.num_workers = self._requested_workers or WORLD_SIZE
         self._started = True
         return self
 

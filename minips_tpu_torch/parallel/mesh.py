@@ -15,7 +15,7 @@ the CPU. Callers that mean the CPU (the parity tests) say so.
 from __future__ import annotations
 
 import math
-from typing import NamedTuple, Union
+from typing import Union
 
 import torch
 
@@ -37,24 +37,6 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
     return dev
-
-
-class Mesh(NamedTuple):
-    """What the port keeps of the JAX package's mesh: the device every
-    table lives on and the size of the ``data`` axis, ``shape["data"]``."""
-    device: torch.device
-    shape: dict
-
-
-def make_mesh(device: DeviceLike = None) -> Mesh:
-    """The one-card mesh (the counterpart of ``make_mesh``, which
-    ``Engine.start_everything`` calls): ``device`` resolved as everywhere
-    else, and a ``data`` axis of ``WORLD_SIZE``."""
-    return Mesh(resolve_device(device), {DATA_AXIS: WORLD_SIZE})
-
-
-def local_mesh_size(mesh: Mesh, axis: str = DATA_AXIS) -> int:
-    return mesh.shape[axis]
 
 
 def same_device(a: torch.device, b: torch.device) -> bool:

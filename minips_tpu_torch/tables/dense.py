@@ -26,9 +26,8 @@ import torch
 from minips_tpu_torch.parallel.mesh import (WORLD_SIZE, DeviceLike,
                                             resolve_device)
 from minips_tpu_torch.parallel.partition import RangePartitioner
-from minips_tpu_torch.tables.updaters import (Adam8bitState, LearningRate,
-                                              Updater, make_updater,
-                                              masked_merge_adam8)
+from minips_tpu_torch.tables.updaters import (LearningRate, Updater,
+                                              make_updater)
 from minips_tpu_torch.utils.tree import PyTree, tree_leaves, tree_map, \
     tree_rebuild
 
@@ -138,15 +137,18 @@ class DenseTable:
                     f"{tuple(flat.shape)} — the mask must be params-shaped")
             kw["decay_mask"] = self._pad(mflat.to(flat.dtype))
         self.tx = tx if tx is not None else make_updater(updater, lr, **kw)
+        # the updater runs on one range shard: its state must fit one (a
+        # quantized state's blocks must not straddle two); a probe on the
+        # meta device allocates nothing
         shard = self.partitioner.shard_size
-        for _, block in self.tx.adam8:
-            if shard % block:
-                raise ValueError(
-                    f"quantized opt state with block={block} does not align "
-                    f"with shard size {shard}: each contiguous range shard "
-                    "must hold whole blocks (use updater='adam8' so the "
-                    "table aligns its padding, or pick a block that divides "
-                    "the shard size)")
+        try:
+            self.tx.init(torch.empty(shard, device="meta"))
+        except ValueError as e:
+            raise ValueError(
+                f"the updater's state does not fit a range shard of {shard} "
+                f"keys ({e}): each shard must hold whole blocks (use "
+                "updater='adam8' so the table aligns its padding, or pick a "
+                "block that divides the shard size)") from e
         self.params = self._pad(flat)
         self.opt_state = self.tx.init(self.params)
 
@@ -200,26 +202,10 @@ class DenseTable:
         updates, new_opt = self.tx.update(g, self.opt_state, self.params)
         if mask is not None:
             updates = updates * mask
-            new_opt = self._restore_untouched(new_opt, mask)
+            # untouched keys keep their old state (adam8's block by block)
+            new_opt = self.tx.restore(new_opt, self.opt_state, mask)
         self.params = self.params + updates
         self.opt_state = new_opt
-
-    def _restore_untouched(self, new_opt: list, mask: torch.Tensor) -> list:
-        """The state after a masked push: untouched keys keep their old
-        elementwise state. adam8's codes and scales are restored block by
-        block (``masked_merge_adam8``): restoring the codes alone would
-        pair them with the new scales."""
-        old, out = self.opt_state, list(new_opt)
-        quantized = set()
-        for at, _ in self.tx.adam8:
-            out[at:at + 5] = masked_merge_adam8(
-                Adam8bitState(*new_opt[at:at + 5]),
-                Adam8bitState(*old[at:at + 5]), mask)
-            quantized.update(range(at, at + 5))
-        for i, (new, prev) in enumerate(zip(new_opt, old)):
-            if i not in quantized and new.shape == self.params.shape:
-                out[i] = torch.where(mask > 0, new, prev)
-        return out
 
     # ------------------------------------------------------------- fused step
     def make_step(

@@ -15,7 +15,9 @@ optax state it mirrors (adagrad ``[sum_of_squares]``, adam
 ``[count, mu, nu]``, ``adam_bf16`` the same in bfloat16, ``adam8``
 ``[count, mu_q, mu_s, nu_q, nu_s]``, a schedule appends its ``count``), so
 the two packages exchange optimizer state leaf by leaf. Updates are
-functional: they return new tensors and write none they were given.
+functional: they return new tensors and write none they were given. Each
+updater also carries ``restore(new, old, mask) -> state``, the state a
+masked push keeps: untouched keys get their old per-key state back.
 
 ``adam_bf16`` and ``adam8`` are the JAX package's optimizer-state memory
 levers: Adam whose moments are stored in bfloat16, or as blockwise uint8
@@ -41,6 +43,9 @@ UPDATERS = ("sgd", "adagrad", "adam", "adamw", "adam_bf16", "adam8")
 LearningRate = Union[float, Callable[[torch.Tensor], object]]
 
 _INT32_MAX = torch.iinfo(torch.int32).max
+# adam8 updates its flat vector this many elements at a time (rounded down
+# to whole blocks): 16 M float32 temporaries are 64 MB each
+_ADAM8_SLICE = 1 << 24
 
 
 class Updater(NamedTuple):
@@ -48,10 +53,23 @@ class Updater(NamedTuple):
     update: Callable[[torch.Tensor, list, torch.Tensor],
                      tuple[torch.Tensor, list]]
     num_leaves: int  # len(init(params)): fixed per transform
-    # (offset, block) of each Adam8bitState among the state's leaves: the
-    # masked push restores those five leaves block by block, not
-    # elementwise (``masked_merge_adam8``)
-    adam8: tuple = ()
+    # (new_state, old_state, mask) -> the state after a push that touched
+    # only the keys where mask > 0
+    restore: Callable[[list, list, torch.Tensor], list]
+
+
+def _per_key(new: list, old: list, mask: torch.Tensor) -> list:
+    """Restore for leaves that each hold one value per key."""
+    return [torch.where(mask > 0, n, o) for n, o in zip(new, old)]
+
+
+def _count_then_per_key(new: list, old: list, mask: torch.Tensor) -> list:
+    """Restore for ``[count, per-key leaves...]``: the count advances."""
+    return [new[0]] + _per_key(new[1:], old[1:], mask)
+
+
+def _take_new(new: list, old: list, mask: torch.Tensor) -> list:
+    return list(new)
 
 
 def _count0(params: torch.Tensor) -> torch.Tensor:
@@ -65,12 +83,8 @@ def _safe_increment(count: torch.Tensor) -> torch.Tensor:
 
 def chain(*parts: Updater) -> Updater:
     """optax.chain: updates flow through each part in turn; the state is
-    the parts' leaves concatenated in order."""
-    adam8, offset = [], 0
-    for p in parts:
-        adam8.extend((offset + at, block) for at, block in p.adam8)
-        offset += p.num_leaves
-
+    the parts' leaves concatenated in order, and each part restores its
+    own leaves."""
     def init(params):
         return [leaf for p in parts for leaf in p.init(params)]
 
@@ -82,12 +96,21 @@ def chain(*parts: Updater) -> Updater:
             i += p.num_leaves
         return updates, new_state
 
-    return Updater(init, update, offset, tuple(adam8))
+    def restore(new, old, mask):
+        out, i = [], 0
+        for p in parts:
+            j = i + p.num_leaves
+            out.extend(p.restore(new[i:j], old[i:j], mask))
+            i = j
+        return out
+
+    return Updater(init, update, sum(p.num_leaves for p in parts), restore)
 
 
 def _stateless(fn) -> Updater:
     return Updater(lambda params: [],
-                   lambda g, state, params: (fn(g, params), []), 0)
+                   lambda g, state, params: (fn(g, params), []), 0,
+                   _take_new)
 
 
 def clip_by_global_norm(max_norm: float) -> Updater:
@@ -104,7 +127,7 @@ def trace(decay: float) -> Updater:
         (t,) = state
         new = g + decay * t
         return new, [new]
-    return Updater(lambda p: [torch.zeros_like(p)], update, 1)
+    return Updater(lambda p: [torch.zeros_like(p)], update, 1, _per_key)
 
 
 def scale_by_rss(initial_accumulator_value: float = 0.1,
@@ -116,7 +139,8 @@ def scale_by_rss(initial_accumulator_value: float = 0.1,
         inv = torch.where(sos > 0, torch.rsqrt(sos + eps), 0.0)
         return inv * g, [sos]
     return Updater(
-        lambda p: [torch.full_like(p, initial_accumulator_value)], update, 1)
+        lambda p: [torch.full_like(p, initial_accumulator_value)], update, 1,
+        _per_key)
 
 
 def scale_by_adam(b1: float = 0.9, b2: float = 0.999,
@@ -134,7 +158,7 @@ def scale_by_adam(b1: float = 0.9, b2: float = 0.999,
         return mu_hat / (torch.sqrt(nu_hat) + eps), [count, mu, nu]
     return Updater(
         lambda p: [_count0(p), torch.zeros_like(p), torch.zeros_like(p)],
-        update, 3)
+        update, 3, _count_then_per_key)
 
 
 def _f32(x: float) -> float:
@@ -178,7 +202,7 @@ def scale_by_adam_lowp(b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
         out = (m_new / bc1) / (torch.sqrt(v_new / bc2) + eps)
         return out, [count, m_new.to(sd), v_new.to(sd)]
 
-    return Updater(init, update, 3)
+    return Updater(init, update, 3, _count_then_per_key)
 
 
 class Adam8bitState(NamedTuple):
@@ -207,7 +231,10 @@ def _codebook_np(signed: bool) -> np.ndarray:
     return np.asarray(vals, np.float32)
 
 
-def _codebook(signed: bool, device) -> torch.Tensor:
+@functools.lru_cache(maxsize=None)
+def _codebook(signed: bool, device: torch.device) -> torch.Tensor:
+    # kept per device: a host-to-device copy at every call would wait for
+    # the card at each slice of the update
     return torch.from_numpy(_codebook_np(signed)).to(device)
 
 
@@ -296,21 +323,42 @@ def scale_by_adam_8bit(b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
                 torch.zeros(n, dtype=torch.uint8, device=dev),         # 0.0
                 torch.zeros(n // block, dtype=torch.float32, device=dev)]
 
+    # elements per slice of the update: whole blocks, so each slice's
+    # scales are its own and the result does not depend on the slicing
+    step = max(_ADAM8_SLICE // block, 1) * block
+
     def update(g, state, params):
         st = Adam8bitState(*state)
-        g = g.to(torch.float32)
         count = st.count + 1
-        m = _dequantize_block(st.mu_q, st.mu_s, block)
-        v = _dequantize_block(st.nu_q, st.nu_s, block, signed=False)
-        m_new = b1f * m + c1 * g
-        v_new = b2f * v + c2 * g * g   # ((1 - b2) * g) * g, as in JAX
         bc1, bc2 = _bias_corrections(count, b1f, b2f)
-        out = (m_new / bc1) / (torch.sqrt(v_new / bc2) + eps)
-        mq, ms = _quantize_block(m_new, block)
-        vq, vs = _quantize_block(v_new, block, signed=False)
+        n = g.shape[0]
+        out = torch.empty(n, dtype=torch.float32, device=g.device)
+        mq, vq = torch.empty_like(st.mu_q), torch.empty_like(st.nu_q)
+        ms, vs = torch.empty_like(st.mu_s), torch.empty_like(st.nu_s)
+        # dequantize -> moments -> quantize one slice at a time: the float32
+        # moments and the search's temporaries stay slice-sized, so the
+        # update needs little beyond its output and the new codes
+        for lo in range(0, n, step):
+            hi = min(lo + step, n)
+            blo, bhi = lo // block, hi // block
+            gs = g[lo:hi].to(torch.float32)
+            m = _dequantize_block(st.mu_q[lo:hi], st.mu_s[blo:bhi], block)
+            v = _dequantize_block(st.nu_q[lo:hi], st.nu_s[blo:bhi], block,
+                                  signed=False)
+            m_new = b1f * m + c1 * gs
+            v_new = b2f * v + c2 * gs * gs   # ((1 - b2) * g) * g, as in JAX
+            torch.div(m_new / bc1, torch.sqrt(v_new / bc2) + eps,
+                      out=out[lo:hi])
+            mq[lo:hi], ms[blo:bhi] = _quantize_block(m_new, block)
+            vq[lo:hi], vs[blo:bhi] = _quantize_block(v_new, block,
+                                                     signed=False)
         return out, [count, mq, ms, vq, vs]
 
-    return Updater(init, update, 5, ((0, block),))
+    def restore(new, old, mask):
+        return list(masked_merge_adam8(Adam8bitState(*new),
+                                       Adam8bitState(*old), mask))
+
+    return Updater(init, update, 5, restore)
 
 
 def add_decayed_weights(weight_decay: float) -> Updater:
@@ -324,7 +372,7 @@ def masked_weight_decay(weight_decay: float, mask: torch.Tensor) -> Updater:
         (m,) = state
         return g + weight_decay * params * m, [m]
     return Updater(lambda p: [mask.to(device=p.device, dtype=p.dtype)],
-                   update, 1)
+                   update, 1, _per_key)
 
 
 def scale_by_learning_rate(lr: LearningRate) -> Updater:
@@ -337,7 +385,7 @@ def scale_by_learning_rate(lr: LearningRate) -> Updater:
         (count,) = state
         step = torch.as_tensor(-lr(count), dtype=g.dtype, device=g.device)
         return step * g, [_safe_increment(count)]
-    return Updater(lambda p: [_count0(p)], update, 1)
+    return Updater(lambda p: [_count0(p)], update, 1, _take_new)
 
 
 def make_updater(name: str, lr: LearningRate, **kwargs) -> Updater:

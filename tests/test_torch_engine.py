@@ -197,7 +197,7 @@ def test_pull_is_a_snapshot_under_later_pushes():
 
 def test_engine_defaults_and_unported_features():
     e = Engine(device="cpu").start_everything()
-    assert e.num_workers == 1 and e.mesh.shape == {"data": 1}
+    assert e.num_workers == 1
     assert e.device == torch.device("cpu")
     with pytest.raises(ValueError, match="unknown table kind"):
         e.create_table(TableConfig(kind="ragged"))

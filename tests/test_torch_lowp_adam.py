@@ -135,8 +135,6 @@ def test_lowp_updater_matches_jax(name):
     jleaves = jax.tree.leaves(js)
     assert len(ts) == len(jleaves) == ttx.num_leaves
     assert [_bits(t).dtype for t in ts] == [_bits(x).dtype for x in jleaves]
-    if name == "adam8":
-        assert ttx.adam8 == ((0, BLOCK),)
     stored = (1, 2) if name == "adam_bf16" else (1, 3)   # moments / codes
     matched = total = 0
     for _ in range(STEPS):
@@ -181,6 +179,27 @@ def test_lowp_updater_matches_jax(name):
     assert matched >= 0.999 * total, (matched, total)
 
 
+@pytest.mark.parametrize("blocks", [1, 3, 16])
+def test_adam8_update_by_slices_equals_one_pass(monkeypatch, blocks):
+    """adam8 updates its vector a slice of whole blocks at a time to bound
+    its temporaries; slices of 1, 3 (not dividing the 17 blocks) or 16
+    blocks give the one-slice update's outputs and state bit for bit."""
+    rng = np.random.default_rng(11)
+    n = 17 * BLOCK
+    whole = tupd.make_updater("adam8", 1e-3)
+    monkeypatch.setattr(tupd, "_ADAM8_SLICE", blocks * BLOCK)
+    sliced = tupd.make_updater("adam8", 1e-3)
+    p = torch.zeros(n)
+    sw, ss = whole.init(p), sliced.init(p)
+    for _ in range(3):
+        g = torch.from_numpy(_grads(rng, n, BLOCK))
+        uw, sw = whole.update(g, sw, p)
+        us, ss = sliced.update(g, ss, p)
+        np.testing.assert_array_equal(_bits(uw), _bits(us))
+        for a, b in zip(sw, ss):
+            np.testing.assert_array_equal(_bits(a), _bits(b))
+
+
 def test_lowp_updaters_take_their_options():
     bf = tupd.make_updater("adam_bf16", 1e-3, state_dtype="float16",
                            clip_norm=1.0)
@@ -188,12 +207,25 @@ def test_lowp_updaters_take_their_options():
     assert [x.dtype for x in st] == [torch.int32, torch.float16,
                                      torch.float16]
     a8 = tupd.make_updater("adam8", 1e-3, block=4, clip_norm=1.0)
-    assert a8.adam8 == ((0, 4),) and a8.num_leaves == 5
+    assert a8.num_leaves == 5
     with pytest.raises(ValueError, match="divisible by block=4"):
         a8.init(torch.zeros(6))
-    # an adam8 part after another stateful one sits at its offset
+    # an adam8 part after another stateful one restores its own leaves at
+    # its offset, block by block, and the other part's per key
     both = tupd.chain(tupd.trace(0.5), a8)
-    assert both.adam8 == ((1, 4),) and len(both.init(torch.zeros(8))) == 6
+    old = both.init(torch.zeros(8))
+    assert len(old) == 6
+    _, new = both.update(torch.arange(1.0, 9.0), old, torch.zeros(8))
+    mask = torch.tensor([0.0, 1.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0])
+    got = both.restore(new, old, mask)
+    assert torch.equal(got[0], torch.where(mask > 0, new[0], old[0]))
+    want = tupd.masked_merge_adam8(tupd.Adam8bitState(*new[1:]),
+                                   tupd.Adam8bitState(*old[1:]), mask)
+    for g, w in zip(got[1:], want):
+        assert torch.equal(g, w)
+    # the untouched block keeps its codes and scale; the touched one moved
+    assert torch.equal(got[2][4:], old[2][4:]) and float(got[3][1]) == 0.0
+    assert not torch.equal(got[2][:4], old[2][:4])
 
 
 # -------------------------------------------------------------- dense table
@@ -330,7 +362,7 @@ def test_custom_tx_adam8_and_misalign_raises():
     t = tdense.DenseTable({"w": torch.zeros(64)}, name="ctx8",
                           tx=tupd.make_updater("adam8", 0.01, block=8),
                           device="cpu")
-    assert t.tx.adam8 == ((0, 8),) and t.padded == 64
+    assert t.padded == 64
     assert t.opt_state[2].numel() == 8   # one scale per block
     t.push({"w": torch.ones(64)})
     assert float(t.pull()["w"].abs().sum()) > 0

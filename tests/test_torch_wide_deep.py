@@ -138,3 +138,18 @@ def test_spmd_bf16_trains():
     out = twd.run(tc, args, MetricsLogger(None, verbose=False))
     assert np.isfinite(out["losses"]).all()
     assert out["losses"][-1] < out["losses"][0]
+
+
+@pytest.mark.parametrize("starts, sizes, end, want", [
+    # one worker: steps 3 and 4 over the time since step 2 began, as the
+    # spmd path's StepTimer counts them
+    ([[0.0, 1.0, 2.0, 3.0]], [10], 4.0, 20 / 2.0),
+    # the clock starts when the slowest worker ends its warm-up (2.5); a
+    # step counts if it began since
+    ([[0.0, 1.0, 2.0, 3.0, 4.0], [0.0, 1.5, 2.5, 3.5]], [10, 8], 5.0,
+     (2 * 10 + 2 * 8) / 2.5),
+    # a worker that never got past its warm-up: no rate
+    ([[0.0, 1.0, 2.0], [0.0, 1.0]], [10, 10], 3.0, 0.0),
+])
+def test_threaded_rate_leaves_out_the_warm_up(starts, sizes, end, want):
+    assert twd._steady_rate(starts, sizes, end) == pytest.approx(want)
