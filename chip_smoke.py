@@ -23,12 +23,16 @@ on failure:
    bf16 K2, K3 and K4 kernels, and 128-bit global loads and no ``CALL``
    (a software division) in the row gather's D = 1 and D = 8 kernels;
 3. kernels: the row gather against its plain PyTorch version on the card,
-   bit-exact, at D 1, 2, 3, 4, 8, 16, 128 and 129, f32, bf16 and f16, N
+   bit-exact, at D 1, 2, 3, 4, 8, 9, 16, 64, 128 and 129, f32, bf16 and
+   f16, N
    from 1 to 9 and the main path's, slot views that start 0 to 3 elements
    into their buffer, out-of-range, boundary and repeated slots, the
    step's [B, 26] slot shape, and the Wide&Deep app's pulls on their own
    inputs (both hashed tables' shapes and salts, a worker batch's
-   [1024, 26] keys and a holdout chunk's [8192, 26]);
+   [1024, 26] keys and a holdout chunk's [8192, 26]), and the LR sparse,
+   MF and word2vec apps' pulls on theirs ([512, 14] into 2^16 x 1; [1024]
+   and [8192] identity slots into 2^18 x 9 and 2^15 x 9; [1024] and
+   [1024, 6] hashed slots into 2^14 x 64);
 4. hash: the key hash on the card, bit-identical to its numpy twin;
 5. LR + MLP path: 20 steps of both models, with finite and falling loss,
    the row gather's launch count, the same first 3 steps on the CPU port
@@ -49,7 +53,8 @@ on failure:
    version's, one PyTorch call's and the least time the card could take,
    with the kernel's design (``wgmma`` or ``simt-vec``); the row gather
    also cold (L2 flushed before each launch, the time its bound is read
-   against), at the D = 128 pull's shape, and its host launch cost;
+   against), at the D = 128 pull's shape, at MF's [1024] x 9 and
+   word2vec's [1024, 6] x 64 pulls, and its host launch cost;
 10. LM low-precision state: ``build_lm(opt_state=...)`` at ``"bf16"``
     (``adam_bf16``) and ``"int8"`` (``adam8``), 10 full-width steps each,
     with finite and falling loss, each flash kernel launched once per
@@ -70,7 +75,33 @@ on failure:
     leave out the first two steps) and the holdout AUC; the loader's prefetch thread (pinned memory, copy stream)
     against the host batches; threaded BSP with 1 worker against the CPU
     port's first 3 losses from the same seed, and the device's idle share
-    over a threaded BSP run.
+    over a threaded BSP run;
+12. LR and MLP apps: ``apps/lr_example.py``'s ``run`` at its defaults
+    (dim 123, batch 512, 200 iterations, a 0.2 holdout) with dense data
+    (spmd and threaded, 4 workers) and sparse (a 2^16 x 1 hashed table,
+    the row gather once a step and once for the holdout), a checkpoint
+    resume of the dense path (100 of 200 steps with a checkpoint every 50,
+    restarted, against the uninterrupted run), and
+    ``apps/mlp_example.py``'s at its defaults (spmd and threaded SSP s =
+    4): finite and falling loss, launch counts, samples/s, holdout AUC or
+    accuracy;
+13. MF at MovieLens-20M's user and item counts: a ``ratings.csv`` of
+    1,000,000 ratings of 138,493 users and 26,744 items written in the
+    MovieLens-20M format, read by ``apps/mf_example.py``'s ``--data_file``
+    in spmd and threaded ASP (4 workers) at its defaults (rank 8 + bias,
+    D = 9 tables of 2^18 and 2^15 rows, sgd, batch 1024, 300 iterations, a
+    0.1 holdout): finite losses, a lower loss on the first training
+    batch after training than at the initial weights (300 steps see each
+    user about twice: the step's loss is flat within its batch-to-batch
+    spread), the row gather exactly twice per worker step (plus two per
+    holdout chunk), samples/s, holdout RMSE, the first 3 spmd losses
+    against the CPU port's;
+14. word2vec: ``apps/word2vec_example.py``'s ``run`` at its defaults
+    (vocab 10,000, D = 64 tables of 2^14 rows, batch 1024, 5 negatives,
+    200 iterations) in spmd and threaded ASP (4 workers): finite and
+    falling loss, the row gather exactly twice per worker step, samples/s,
+    the first 3 spmd losses against the CPU port's; then the device's idle
+    share on the LR sparse, MF and word2vec paths.
 
 The last two lines are a JSON object with every kernel's numbers (its
 launches on each path beside them) and then ``{"ok": true, "device":
@@ -84,11 +115,13 @@ import json
 import math
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
 import time
 
+REPO = os.path.dirname(os.path.abspath(__file__))
 B = 65536
 CHAIN = 20
 REPS = 5
@@ -141,7 +174,7 @@ GATHER_MAIN_KERNELS = ("gather_narrow_kernel<u32x1,",
                        "gather_rows_kernel<u128x2,")
 # phase 3's gather cases: row widths, counts (and the main path's N),
 # slot views that start this many elements into their buffer
-GATHER_DIMS = (1, 2, 3, 4, 8, 16, 128, 129)
+GATHER_DIMS = (1, 2, 3, 4, 8, 9, 16, 64, 128, 129)
 GATHER_SMALL_NS = (1, 3, 4, 5, 7, 8, 9)
 GATHER_OFFSETS = (0, 1, 2, 3)
 GATHER_COLD_FLUSH_BYTES = 256 << 20  # written before each cold launch
@@ -157,6 +190,26 @@ WD_WORKERS = 4
 WD_EVAL_FRAC = 0.2
 WD_EVAL_CHUNK = 8192  # evaluate_auc's chunk: one gather per table each
 WD_PROFILED_ITERS = 10
+APP_PROFILED_ITERS = 50
+# the single-process apps (phases 12-14), at their own defaults
+APP_WORKERS = 4
+LR_EVAL_FRAC = 0.2
+RESUME_AT, RESUME_EVERY = 100, 50  # the LR dense checkpoint resume
+# |loss(resumed) - loss(uninterrupted)|: the restored state is the saved
+# one bit for bit and the data stream fast-forwards, so the same kernels
+# see the same inputs
+RESUME_TOL = 1e-6
+# MF at MovieLens-20M's user and item counts (its README), the 20,000,263
+# ratings cut to 1,000,000 for the run's time
+ML20M_USERS, ML20M_ITEMS, ML20M_RATINGS = 138_493, 26_744, 20_000_263
+MF_RATINGS = 1_000_000
+MF_EVAL_FRAC = 0.1
+# |loss(card) - loss(CPU)| over MF's and word2vec's first CPU_STEPS steps.
+# Both are float32 throughout; the card's index_add_ sums a batch's
+# duplicate rows (popular items, unigram^0.75 negatives) with atomics in
+# no fixed order, and the batch-sized gradient scale (lr x B = 51) carries
+# a rounding difference into the next step's rows: ~1e-6 after 3 steps.
+APP_LOSS_TOL = 1e-4
 
 
 def check(cond: bool, msg: str) -> None:
@@ -476,11 +529,19 @@ def main() -> int:
         print("chip_smoke: CUDA is not available; this script runs only on "
               "an NVIDIA card", file=sys.stderr)
         return 2
-    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    sys.path.insert(0, REPO)
     import numpy as np
 
+    import argparse
+
     from minips_tpu_torch import interop
+    from minips_tpu_torch.apps import lr_example as lrx
+    from minips_tpu_torch.apps import mf_example as mfx
     from minips_tpu_torch.apps import wide_deep_example as wdx
+    from minips_tpu_torch.apps import word2vec_example as w2vx
+    from minips_tpu_torch.apps.common import holdout_split
+    from minips_tpu_torch.data.movielens import read_ratings
+    from minips_tpu_torch.models import mf as mf_model
     from minips_tpu_torch.apps.lm import build_lm
     from minips_tpu_torch.apps.lrmlp import build_lrmlp
     from minips_tpu_torch.data import synthetic
@@ -587,12 +648,55 @@ def main() -> int:
             wd_cases.append((t.name, tuple(emb.shape), tuple(slots.shape)))
             cases += 1
     del wd_tables
+    # the single-process apps' pulls on their own inputs, keyed as each
+    # app's tables key them: LR sparse's [512, 14] feature ids into 2^16 x
+    # 1; MF's identity-mapped user and item ids at MovieLens-20M's counts
+    # ([1024] a step, [8192] a holdout chunk) into 2^18 x 9 and 2^15 x 9;
+    # word2vec's [1024] centers and [1024, 1 + NEG] output keys (the
+    # positive, then the negatives) into 2^14 x 64
+    lr_data = synthetic.classification_sparse(8192, seed=0)
+    ml_data = synthetic.movielens_like(MF_RATINGS, users=ML20M_USERS,
+                                       items=ML20M_ITEMS, seed=0)
+    mf_bs = mfx.DEFAULT.train.batch_size
+    mf_batch = next(iter(BatchIterator(ml_data, mf_bs, seed=0)))
+    mf_user_t, mf_item_t = mfx.make_tables(mfx.DEFAULT, ML20M_USERS,
+                                           ML20M_ITEMS, dev)
+    w2v_in, w2v_out = w2vx.make_tables(w2vx.DEFAULT, dev)
+    w2v_b = next(w2vx.batch_gen(w2vx.DEFAULT, *w2vx.pairs(
+        w2vx.DEFAULT, argparse.Namespace(data_file=None, subsample=0.0)), 0))
+    w2v_out_keys = w2vx.out_keys(torch.as_tensor(w2v_b["pos"], device=dev),
+                                 torch.as_tensor(w2v_b["neg"], device=dev))
+    app_pulls = (
+        ("lr_sparse", SparseTable(lrx.SPARSE_SLOTS, 1, device=dev),
+         next(iter(BatchIterator(lr_data, lrx.DEFAULT.train.batch_size,
+                                 seed=0)))["idx"]),
+        ("mf_user", mf_user_t, mf_batch["user"]),
+        ("mf_user", mf_user_t, ml_data["user"][:WD_EVAL_CHUNK]),
+        ("mf_item", mf_item_t, mf_batch["item"]),
+        ("mf_item", mf_item_t, ml_data["item"][:WD_EVAL_CHUNK]),
+        ("w2v_in", w2v_in, w2v_b["center"]),
+        ("w2v_out", w2v_out, w2v_out_keys))
+    app_cases = []
+    for name, t, keys in app_pulls:
+        emb = torch.randn_like(t.emb)
+        slots = t.slots_of(keys)
+        compare(emb, slots)
+        app_cases.append((name, tuple(emb.shape), tuple(slots.shape)))
+        cases += 1
+    # phase 9 times the gather at MF's step pull and word2vec's output pull
+    app_timed = (("mf_user [1024] x 9", torch.randn_like(mf_user_t.emb),
+                  mf_user_t.slots_of(mf_batch["user"])),
+                 ("w2v_out [1024, 6] x 64", torch.randn_like(w2v_out.emb),
+                  w2v_out.slots_of(w2v_out_keys)))
+    del mf_user_t, mf_item_t, w2v_in, w2v_out, app_pulls
     print(f"gather_rows: {cases} cases bit-exact against the plain version "
           f"(D {GATHER_DIMS} x N {(*GATHER_SMALL_NS, n_main)} x slot views "
           f"{GATHER_OFFSETS} elements into their buffer x f32/bf16/f16; "
           "out-of-range and boundary slots inside 4-slot groups, repeated "
           f"rows; [{B}, 26] slots at D 1 and 8; the Wide&Deep pulls' hashed "
-          f"keys, (table, rows, slots): {wd_cases})", flush=True)
+          f"keys, (table, rows, slots): {wd_cases}; the LR sparse, MF and "
+          f"word2vec apps' pulls on their own keys: {app_cases})",
+          flush=True)
 
     # ------------------------------------------------------------ 4. hash
     keys = np.concatenate([
@@ -831,15 +935,21 @@ def main() -> int:
                         device=dev)
     shapes = []
     wide_slots = hash_to_slots(cats, S, 1).reshape(-1)
-    for emb, slots, main in (
-            (p.wide.emb, wide_slots, True),
-            (p.emb.emb, hash_to_slots(cats, S, 2).reshape(-1), True),
-            (t128.emb, hash_to_slots(k128, S, 0), False)):
+    for emb, slots, main, label in (
+            (p.wide.emb, wide_slots, True, "the main path's (LR wide)"),
+            (p.emb.emb, hash_to_slots(cats, S, 2).reshape(-1), True,
+             "the main path's (MLP emb)"),
+            (t128.emb, hash_to_slots(k128, S, 0), False,
+             "the D=128 pull's"),
+            *((emb, slots, False, f"the {name} app pull's")
+              for name, emb, slots in app_timed)):
         n, d, item = slots.numel(), emb.shape[1], emb.element_size()
+        flat = slots.reshape(-1)  # index_select takes one index dimension
         uniq = int(torch.unique(slots).numel())
         nbytes = n * 4 + uniq * d * item + n * d * item
         shape = {
             "D": d, "N": n, "main_path": main, "unique_rows": uniq,
+            "shape": label, "slots_shape": list(slots.shape),
             "bytes": nbytes,
             "kernel_ms": time_ms(torch, lambda: gather_rows(emb, slots)),
             "cold_ms": time_ms(torch, lambda: gather_rows(emb, slots),
@@ -847,9 +957,9 @@ def main() -> int:
             "plain_ms": time_ms(torch,
                                 lambda: gather_rows_reference(emb, slots)),
             "library_ms": time_ms(torch,
-                                  lambda: torch.index_select(emb, 0, slots)),
+                                  lambda: torch.index_select(emb, 0, flat)),
             "library_cold_ms": time_ms(
-                torch, lambda: torch.index_select(emb, 0, slots),
+                torch, lambda: torch.index_select(emb, 0, flat),
                 flush.zero_),
             "bound_ms": 1e3 * nbytes / mem_bw,
         }
@@ -866,9 +976,9 @@ def main() -> int:
                 torch, lambda: gather_rows(emb, quarter), flush.zero_)
             shape["n4_ms"] = time_ms(torch, lambda: gather_rows(emb, four))
         shapes.append(shape)
-        print("gather_rows at " + ("the main path's" if main else "the "
-              "D=128 pull's") + " shape: " + json.dumps(shape), flush=True)
-    del flush
+        print(f"gather_rows at {label} shape: " + json.dumps(shape),
+              flush=True)
+    del flush, app_timed
     emb, slots = p.wide.emb, wide_slots
     rows_out = torch.empty((slots.numel(), 1), device=dev)
     launch_us = {
@@ -1076,7 +1186,6 @@ def main() -> int:
         del card_lm, cpu_lm
 
     # ------------------------------------- 11. Wide&Deep through the Engine
-    import argparse
     import copy
 
     from minips_tpu_torch.utils.metrics import MetricsLogger
@@ -1171,8 +1280,252 @@ def main() -> int:
     print("Wide&Deep threaded BSP device time over one whole run "
           "(torch.profiler): " + json.dumps(wd_dev), flush=True)
 
+    # ------------------------------------------- 12. the LR and MLP apps
+    from minips_tpu_torch.apps import mlp_example as mlpx
+
+    def app_run(app, mode, *, iters=None, workers=APP_WORKERS, device=dev,
+                train=None, **args):
+        """One ``run`` of an app at its defaults (iterations, workers and
+        ``train`` fields set as given); returns (result, K1 launches)."""
+        cfg = copy.deepcopy(app.DEFAULT)
+        cfg.train.log_every = 0
+        cfg.train.num_workers = workers
+        if iters:
+            cfg.train.num_iters = iters
+        for key, value in (train or {}).items():
+            setattr(cfg.train, key, value)
+        torch.cuda.synchronize()
+        gather_rows.launches = 0
+        out = app.run(cfg, argparse.Namespace(exec_mode=mode,
+                                              device=str(device), **args),
+                      MetricsLogger(None, verbose=False))
+        torch.cuda.synchronize()
+        return out, gather_rows.launches
+
+    def falling(key, losses, n):
+        check(len(losses) == n and all(math.isfinite(x) for x in losses),
+              f"{key}: {len(losses)} losses, expected {n} finite: {losses}")
+        check(losses[-1] < losses[0],
+              f"{key}: loss did not fall: {losses[0]} -> {losses[-1]}")
+
+    def profiled(app, mode, step_ms, **kw):
+        """Device busy time per step over a whole run of APP_PROFILED_ITERS
+        steps (set-up and holdout included), beside the unprofiled steady
+        step time ``step_ms``: the idle share of the training steps."""
+        return device_time(torch, lambda: app_run(
+            app, mode, iters=APP_PROFILED_ITERS, **kw), APP_PROFILED_ITERS,
+            step_ms)
+
+    app_launches = {}
+    apps = {}
+    lr_eval_gathers = math.ceil(int(8192 * LR_EVAL_FRAC) / WD_EVAL_CHUNK)
+    lr_iters = lrx.DEFAULT.train.num_iters
+    for key, mode, data in (("lr_dense", "spmd", "dense"),
+                            ("lr_sparse", "spmd", "sparse"),
+                            ("lr_threaded", "threaded", "dense")):
+        out, n_k1 = app_run(lrx, mode, data=data, eval_frac=LR_EVAL_FRAC)
+        falling(key, out["losses"], lr_iters)
+        steps = lr_iters * (APP_WORKERS if mode == "threaded" else 1)
+        want = (steps + lr_eval_gathers) if data == "sparse" else 0
+        check(n_k1 == want, f"{key}: gather_rows launched {n_k1} times, "
+              f"expected {want} (1 a step and {lr_eval_gathers} for the "
+              "holdout on the sparse path, none on the dense)")
+        apps[key] = {"mode": mode, "data": data, "iters": lr_iters,
+                     "workers": APP_WORKERS if mode == "threaded" else 1,
+                     "batch": lrx.DEFAULT.train.batch_size,
+                     "loss_first": out["losses"][0],
+                     "loss_last": out["losses"][-1],
+                     "samples_per_s": out["samples_per_sec"],
+                     "holdout_auc": out["auc"], "gather_launches": n_k1}
+        if key == "lr_dense":
+            lr_whole = out["losses"]
+        else:
+            app_launches[key] = n_k1
+        print(f"app {key}: " + json.dumps(apps[key]), flush=True)
+    # checkpoint resume: RESUME_AT of the steps with a checkpoint every
+    # RESUME_EVERY, then a restart from the newest, against the
+    # uninterrupted run above
+    ck_dir = os.path.join(REPO, "build", "chip_smoke_ckpt")
+    shutil.rmtree(ck_dir, ignore_errors=True)  # a killed run's leftovers
+    ck = {"checkpoint_dir": ck_dir, "checkpoint_every": RESUME_EVERY}
+    part, _ = app_run(lrx, "spmd", iters=RESUME_AT, train=ck, data="dense",
+                      eval_frac=LR_EVAL_FRAC)
+    resumed, _ = app_run(lrx, "spmd", train=ck, data="dense",
+                         eval_frac=LR_EVAL_FRAC)
+    shutil.rmtree(ck_dir)
+    check(len(resumed["losses"]) == lr_iters - RESUME_AT,
+          f"resume ran {len(resumed['losses'])} steps, expected "
+          f"{lr_iters - RESUME_AT}")
+    resume_diff = max(abs(a - b) for a, b in zip(
+        part["losses"] + resumed["losses"], lr_whole))
+    check(resume_diff <= RESUME_TOL, f"LR dense resumed at step {RESUME_AT}: "
+          f"losses differ from the uninterrupted run's by {resume_diff} > "
+          f"{RESUME_TOL}")
+    print(f"app lr_dense checkpoint resume: {RESUME_AT} of {lr_iters} steps "
+          f"with a checkpoint every {RESUME_EVERY}, restarted from step "
+          f"{RESUME_AT}; max |loss diff| against the uninterrupted run "
+          f"{resume_diff:.3e} (tolerance {RESUME_TOL}); holdout AUC "
+          f"{resumed['auc']}", flush=True)
+
+    mlp_iters = mlpx.DEFAULT.train.num_iters
+    for key, mode in (("mlp_spmd", "spmd"), ("mlp_threaded", "threaded")):
+        out, n_k1 = app_run(mlpx, mode)
+        falling(key, out["losses"], mlp_iters)
+        check(n_k1 == 0, f"{key}: gather_rows launched {n_k1} times on a "
+              "dense path")
+        apps[key] = {"mode": mode, "iters": mlp_iters,
+                     "workers": APP_WORKERS if mode == "threaded" else 1,
+                     "batch": mlpx.DEFAULT.train.batch_size,
+                     "loss_first": out["losses"][0],
+                     "loss_last": out["losses"][-1],
+                     "samples_per_s": out["samples_per_sec"],
+                     "accuracy": out["accuracy"]}
+        print(f"app {key}: " + json.dumps(apps[key]), flush=True)
+
+    # ------------------------- 13. MF at MovieLens-20M's user and item counts
+    ratings = os.path.join(REPO, "build", "chip_smoke_ratings.csv")
+    os.makedirs(os.path.dirname(ratings), exist_ok=True)
+    t0 = time.perf_counter()
+    with open(ratings, "w") as f:
+        f.write("userId,movieId,rating,timestamp\n")
+        np.savetxt(f, np.column_stack([
+            ml_data["user"] + 1, ml_data["item"] + 1, ml_data["rating"],
+            1_000_000_000 + np.arange(MF_RATINGS)]), fmt="%d,%d,%.4f,%d")
+    write_s = time.perf_counter() - t0
+    print(f"MF data: {MF_RATINGS} ratings of movielens_like(users="
+          f"{ML20M_USERS}, items={ML20M_ITEMS}) written as a MovieLens-20M "
+          f"ratings.csv in {write_s:.2f} s (MovieLens-20M's {ML20M_RATINGS} "
+          f"ratings cut to {MF_RATINGS} for time)", flush=True)
+    mf_iters, mf_bs = mfx.DEFAULT.train.num_iters, mfx.DEFAULT.train.batch_size
+    mf_eval_gathers = 2 * math.ceil(int(MF_RATINGS * MF_EVAL_FRAC)
+                                    / mfx.EVAL_CHUNK)
+    mf_args = dict(data_file=ratings, eval_frac=MF_EVAL_FRAC)
+    # 300 steps of 1024 see each of the 138 K users about twice, and a
+    # step's loss moves by more from batch to batch than training lowers
+    # it: what training must lower is the loss of ratings it has seen, the
+    # first training batch's (every worker's shard is one epoch in 219
+    # steps), against the same batch's loss at the initial weights
+    raw = read_ratings(ratings)
+    mf_train, _ = holdout_split({k: raw[k] for k in ("user", "item",
+                                                     "rating")},
+                                MF_EVAL_FRAC, seed=mfx.DEFAULT.train.seed)
+    seen = next(iter(BatchIterator(mf_train, mf_bs,
+                                   seed=mfx.DEFAULT.train.seed)))
+
+    @torch.no_grad()
+    def seen_loss(user_t, item_t):
+        return float(mf_model.loss(
+            user_t.pull(seen["user"]), item_t.pull(seen["item"]),
+            torch.as_tensor(seen["rating"], device=dev), mfx.MU, mfx.REG))
+
+    seen_init = seen_loss(*mfx.make_tables(mfx.DEFAULT, raw["num_users"],
+                                           raw["num_items"], dev))
+    del raw, mf_train
+    for key, mode in (("mf_spmd", "spmd"), ("mf_threaded_asp", "threaded")):
+        t0 = time.perf_counter()
+        out, n_k1 = app_run(mfx, mode, **mf_args)
+        run_s = time.perf_counter() - t0
+        losses = out["losses"]
+        check(len(losses) == mf_iters and all(math.isfinite(x)
+                                              for x in losses),
+              f"{key}: {len(losses)} losses, expected {mf_iters} finite")
+        seen_after = seen_loss(*out["tables"])
+        check(seen_after < seen_init, f"{key}: the first training batch's "
+              f"loss did not fall: {seen_init} at the initial weights, "
+              f"{seen_after} after training")
+        workers = APP_WORKERS if mode == "threaded" else 1
+        steps = mf_iters * workers
+        check(n_k1 == 2 * steps + mf_eval_gathers,
+              f"{key}: gather_rows launched {n_k1} times, expected 2 per "
+              f"worker step ({2 * steps}) and {mf_eval_gathers} for the "
+              "holdout")
+        user_t, item_t = out["tables"]
+        check((user_t.num_slots, item_t.num_slots) == (1 << 18, 1 << 15)
+              and user_t.dim == item_t.dim == 9,
+              f"{key}: tables {user_t.num_slots} x {user_t.dim} and "
+              f"{item_t.num_slots} x {item_t.dim}")
+        check(math.isfinite(out["rmse"]), f"{key}: RMSE {out['rmse']}")
+        apps[key] = {"mode": mode, "consistency": mfx.DEFAULT.table
+                     .consistency, "iters": mf_iters, "workers": workers,
+                     "batch": mf_bs, "ratings": MF_RATINGS,
+                     "tables": [[user_t.num_slots, 9], [item_t.num_slots, 9]],
+                     "loss_first": losses[0], "loss_last": losses[-1],
+                     "loss_mean_first_30": statistics.fmean(losses[:30]),
+                     "loss_mean_last_30": statistics.fmean(losses[-30:]),
+                     "seen_batch_loss": [seen_init, seen_after],
+                     "samples_per_s": out["samples_per_sec"],
+                     "holdout_rmse": out["rmse"], "gather_launches": n_k1,
+                     "gathers_per_worker_step":
+                         (n_k1 - mf_eval_gathers) / steps,
+                     "run_s": run_s}
+        app_launches[key] = n_k1
+        if mode == "spmd":
+            mf_card = losses[:CPU_STEPS]
+        del out, user_t, item_t
+        print(f"app {key}: " + json.dumps(apps[key]), flush=True)
+    mf_cpu = app_run(mfx, "spmd", iters=CPU_STEPS, device="cpu",
+                     **mf_args)[0]["losses"]
+    mf_diff = max(abs(a - b) for a, b in zip(mf_card, mf_cpu))
+    check(mf_diff <= APP_LOSS_TOL, f"MF spmd: card and CPU losses differ by "
+          f"{mf_diff} > {APP_LOSS_TOL}: card {mf_card} cpu {mf_cpu}")
+    print(f"MF spmd, card vs CPU port, first {CPU_STEPS} steps from the same "
+          f"seed: card {mf_card} cpu {mf_cpu}, max |loss diff| "
+          f"{mf_diff:.3e} (tolerance {APP_LOSS_TOL})", flush=True)
+
+    # --------------------------------------------------- 14. word2vec
+    w2v_iters = w2vx.DEFAULT.train.num_iters
+    w2v_bs = w2vx.DEFAULT.train.batch_size
+    for key, mode in (("w2v_spmd", "spmd"), ("w2v_threaded_asp", "threaded")):
+        out, n_k1 = app_run(w2vx, mode)
+        falling(key, out["losses"], w2v_iters)
+        workers = APP_WORKERS if mode == "threaded" else 1
+        steps = w2v_iters * workers
+        check(n_k1 == 2 * steps, f"{key}: gather_rows launched {n_k1} times, "
+              f"expected 2 per worker step ({2 * steps})")
+        apps[key] = {"mode": mode, "consistency": w2vx.DEFAULT.table
+                     .consistency, "iters": w2v_iters, "workers": workers,
+                     "batch": w2v_bs, "neg": w2vx.NEG,
+                     "tables": [[w2vx.DEFAULT.table.num_slots,
+                                 w2vx.DEFAULT.table.dim]] * 2,
+                     "loss_first": out["losses"][0],
+                     "loss_last": out["losses"][-1],
+                     "samples_per_s": out["samples_per_sec"],
+                     "gather_launches": n_k1,
+                     "gathers_per_worker_step": n_k1 / steps}
+        app_launches[key] = n_k1
+        if mode == "spmd":
+            w2v_card = out["losses"][:CPU_STEPS]
+        del out
+        print(f"app {key}: " + json.dumps(apps[key]), flush=True)
+    w2v_cpu = app_run(w2vx, "spmd", iters=CPU_STEPS, device="cpu")[0][
+        "losses"]
+    w2v_diff = max(abs(a - b) for a, b in zip(w2v_card, w2v_cpu))
+    check(w2v_diff <= APP_LOSS_TOL, f"word2vec spmd: card and CPU losses "
+          f"differ by {w2v_diff} > {APP_LOSS_TOL}: card {w2v_card} cpu "
+          f"{w2v_cpu}")
+    print(f"word2vec spmd, card vs CPU port, first {CPU_STEPS} steps from the "
+          f"same seed: card {w2v_card} cpu {w2v_cpu}, max |loss diff| "
+          f"{w2v_diff:.3e} (tolerance {APP_LOSS_TOL})", flush=True)
+
+    # the device's idle share on the apps' sparse paths: busy time per step
+    # over a profiled run against the unprofiled steady step time
+    for key, app, kw in (("lr_sparse", lrx, dict(data="sparse")),
+                         ("mf_spmd", mfx, mf_args),
+                         ("mf_threaded_asp", mfx, mf_args),
+                         ("w2v_spmd", w2vx, {}),
+                         ("w2v_threaded_asp", w2vx, {})):
+        rate, mode = apps[key]["samples_per_s"], apps[key]["mode"]
+        per_step = apps[key]["batch"] * apps[key]["workers"]
+        apps[key]["device"] = dev_t = profiled(
+            app, mode, 1e3 * per_step / rate, **kw)
+        unit = "round of workers" if mode == "threaded" else "step"
+        print(f"app {key} device time per {unit} (torch.profiler over "
+              f"{APP_PROFILED_ITERS} iterations): " + json.dumps(dev_t),
+              flush=True)
+    os.remove(ratings)
+
     kernels[0]["launches_by_path"] = dict(lrmlp=main_launches["gather_rows"],
-                                          **wd_launches)
+                                          **wd_launches, **app_launches)
     for k in kernels[1:]:
         k["launches_by_path"] = {f"lm_{opt}": v[k["name"]]
                                  for opt, v in lm_paths.items()}

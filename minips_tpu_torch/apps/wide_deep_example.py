@@ -12,9 +12,12 @@ Two modes:
   through the BSP/SSP/ASP gate, pushing its gradients (scaled by 1/NW)
   and clocking.
 
+``--data_file`` reads a Criteo TSV file (``data/criteo.py``) in place of
+the synthetic rows; with ``--stream`` (spmd only) a producer thread parses
+it in chunks while training runs, and the file is never resident.
 ``--eval_frac`` holds rows out and scores them by streaming ROC-AUC.
-``--exec multiproc`` (ROADMAP.md queue 1 item 15) and ``--data_file`` /
-``--stream`` (item 9.4) are not ported yet and raise.
+``--exec multiproc`` (ROADMAP.md queue 1 item 15) is not ported yet and
+raises.
 
 Usage: python -m minips_tpu_torch.apps.wide_deep_example --model deepfm \\
     --exec threaded --consistency ssp --staleness 2
@@ -22,15 +25,14 @@ Usage: python -m minips_tpu_torch.apps.wide_deep_example --model deepfm \\
 
 from __future__ import annotations
 
-import time
-
-import numpy as np
 import torch
 
 from minips_tpu_torch.apps.common import (app_main, holdout_split,
                                           score_holdout)
 from minips_tpu_torch.core.config import Config, TableConfig, TrainConfig
 from minips_tpu_torch.data import synthetic
+from minips_tpu_torch.data.criteo import (log_transform, read_criteo,
+                                          stream_criteo_batches)
 from minips_tpu_torch.data.loader import BatchIterator
 from minips_tpu_torch.models import wide_deep as wd_model
 from minips_tpu_torch.parallel.mesh import DeviceLike, resolve_device
@@ -47,9 +49,6 @@ DEFAULT = Config(
     train=TrainConfig(batch_size=1024, num_iters=200),
 )
 NUM_DENSE, NUM_CAT = 13, 26
-# steps left out of a rate, as TrainLoop's StepTimer leaves out on the
-# spmd path
-WARMUP_STEPS = 2
 
 
 def build(cfg: Config, *, use_fm: bool, seed: int = 0,
@@ -114,14 +113,25 @@ def _log_collisions(metrics, cats, num_slots) -> dict:
 def run(cfg: Config, args, metrics) -> dict:
     use_fm = getattr(args, "model", "widedeep") == "deepfm"
     mode = getattr(args, "exec_mode", "spmd")
+    stream = getattr(args, "stream", False)
+    if stream and mode != "spmd":
+        raise SystemExit("--stream is only wired into --exec spmd")
     if mode == "multiproc":
         raise SystemExit("--exec multiproc is not ported yet (ROADMAP.md "
                          "queue 1 item 15: the sharded PS)")
-    if getattr(args, "data_file", None) or getattr(args, "stream", False):
-        raise SystemExit("--data_file and --stream are not ported yet "
-                         "(ROADMAP.md queue 1 item 9.4: the dataset readers)")
+    path = getattr(args, "data_file", None)
+    if stream and not path:
+        raise SystemExit("--stream needs --data_file (a file to stream)")
     device = resolve_device(getattr(args, "device", None))
-    data = synthetic.criteo_like(16384, seed=cfg.train.seed)
+    if stream:
+        return _run_streaming(cfg, args, metrics, path, use_fm=use_fm,
+                              device=device)
+    if path:  # real Criteo TSV through the native or Python reader
+        raw = read_criteo(path)
+        data = {"dense": log_transform(raw["dense"], raw["dense_mask"]),
+                "cat": raw["cat"], "y": raw["y"]}
+    else:
+        data = synthetic.criteo_like(16384, seed=cfg.train.seed)
     data, holdout = holdout_split(data,
                                   getattr(args, "eval_frac", None) or 0.0,
                                   seed=cfg.train.seed)
@@ -129,10 +139,7 @@ def run(cfg: Config, args, metrics) -> dict:
         return _run_threaded(cfg, args, metrics, data, holdout,
                              use_fm=use_fm, device=device)
     ps, tables = build(cfg, use_fm=use_fm, seed=cfg.train.seed,
-                       compute_dtype=(torch.bfloat16
-                                      if getattr(args, "dtype", "float32")
-                                      == "bfloat16" else None),
-                       device=device)
+                       compute_dtype=_compute_dtype(args), device=device)
     _log_collisions(metrics, data["cat"], cfg.table.num_slots)
     batches = BatchIterator(data, cfg.train.batch_size, seed=cfg.train.seed)
     loop = TrainLoop(lambda b: ps(ps.shard_batch(b)), batches,
@@ -148,13 +155,53 @@ def run(cfg: Config, args, metrics) -> dict:
          "tables": tables}, metrics)
 
 
+def _compute_dtype(args):
+    return (torch.bfloat16 if getattr(args, "dtype", "float32") == "bfloat16"
+            else None)
+
+
+def _run_streaming(cfg: Config, args, metrics, path: str, *, use_fm: bool,
+                   device: torch.device) -> dict:
+    """One-pass streaming training: a producer thread parses the Criteo
+    file in chunks while earlier batches train, and the file is never
+    resident (``stream_criteo_batches``). The loop ends at min(num_iters,
+    the end of the file). A holdout needs resident rows, so ``--eval_frac``
+    is refused here."""
+    if getattr(args, "eval_frac", None):
+        raise SystemExit("--eval_frac needs resident rows; it is not "
+                         "available with --stream (run a separate "
+                         "non-stream eval pass)")
+    ps, tables = build(cfg, use_fm=use_fm, seed=cfg.train.seed,
+                       compute_dtype=_compute_dtype(args), device=device)
+
+    def xform(d):  # on the producer thread
+        return {"dense": log_transform(d["dense"], d["dense_mask"]),
+                "cat": d["cat"], "y": d["y"]}
+
+    stream_stats: dict = {}
+    batches = stream_criteo_batches(path, cfg.train.batch_size,
+                                    transform=xform, stats=stream_stats)
+    loop = TrainLoop(lambda b: ps(ps.shard_batch(b)), batches,
+                     metrics=metrics, log_every=cfg.train.log_every,
+                     batch_size=cfg.train.batch_size)
+    losses = loop.run(cfg.train.num_iters)
+    metrics.log(final_loss=losses[-1] if losses else None,
+                samples_per_sec=loop.timer.samples_per_sec,
+                # rows short of one final batch (absent when num_iters
+                # ended the loop before the end of the file)
+                stream_dropped_rows=stream_stats.get("dropped_rows"),
+                streamed=True)
+    return {"losses": losses, "samples_per_sec": loop.timer.samples_per_sec,
+            "tables": tables}
+
+
 def _run_threaded(cfg: Config, args, metrics, data, holdout, *,
                   use_fm: bool, device: torch.device) -> dict:
     """Reference-semantics worker threads: each pulls the batch's rows of
     both hashed tables (two row gathers) and the deep tower through the
     consistency gate, takes the gradients by autograd, pushes them and
     clocks. ``samples_per_sec`` is measured as on the spmd path (the JAX
-    package reports 0.0 here): see :func:`_steady_rate`."""
+    package reports 0.0 here): see ``threaded_train``."""
     from minips_tpu_torch.apps.common import threaded_train
     from minips_tpu_torch.consistency import make_controller
     from minips_tpu_torch.core.engine import Engine
@@ -180,10 +227,8 @@ def _run_threaded(cfg: Config, args, metrics, data, holdout, *,
         return loss.detach(), gw, ge, tree_rebuild(deep_params, iter(gd))
 
     NW = engine.num_workers
-    starts = [[] for _ in range(NW)]  # each worker's step start times
 
     def step_fn(info, batch):
-        starts[info.worker_id].append(time.perf_counter())
         wt, et, dt = (info.table(n) for n in ("wide", "emb", "deep"))
         cats = torch.as_tensor(batch["cat"], device=device)
         w_rows = wt.pull(keys=cats)  # [B, NUM_CAT, 1]
@@ -202,14 +247,8 @@ def _run_threaded(cfg: Config, args, metrics, data, holdout, *,
         dt.push(tree_map(lambda x: x / NW, gd))
         return loss
 
-    n_rows = len(data["y"])
-    per_worker = [min(cfg.train.batch_size, max(len(s) // 2, 1))
-                  for s in np.array_split(np.arange(n_rows), NW)]
-    mean_losses = threaded_train(engine, cfg, data, step_fn,
-                                 clock_tables=["wide", "emb", "deep"])
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-    samples_per_sec = _steady_rate(starts, per_worker, time.perf_counter())
+    mean_losses, samples_per_sec = threaded_train(
+        engine, cfg, data, step_fn, clock_tables=["wide", "emb", "deep"])
     deep_params = deep_t.pull()
     engine.stop_everything()
     metrics.log(final_loss=mean_losses[-1], samples_per_sec=samples_per_sec)
@@ -219,30 +258,16 @@ def _run_threaded(cfg: Config, args, metrics, data, holdout, *,
          "tables": (wide_t, emb_t, deep_t)}, metrics)
 
 
-def _steady_rate(starts: list, batch_sizes: list, end: float,
-                 warmup: int = WARMUP_STEPS) -> float:
-    """Samples/s of a threaded run on the spmd path's yardstick: the clock
-    starts once every worker has finished its first ``warmup`` steps and
-    counts the batches of the steps begun since, up to ``end``. A worker
-    begins a step when its previous one has ended (loss read on the host,
-    tables clocked). 0.0 if a worker took no step after its warm-up, as
-    ``StepTimer`` gives."""
-    if any(len(s) <= warmup for s in starts):
-        return 0.0
-    t0 = max(s[warmup] for s in starts)
-    n = sum(b * sum(t >= t0 for t in s) for s, b in zip(starts, batch_sizes))
-    return n / (end - t0) if end > t0 else 0.0
-
-
 def _flags(parser):
     parser.add_argument("--model", default="widedeep",
                         choices=["widedeep", "deepfm"])
     parser.add_argument("--data_file", default=None,
-                        help="Criteo TSV file instead of synthetic data (not "
-                             "ported yet)")
+                        help="Criteo TSV file instead of synthetic data")
     parser.add_argument("--stream", action="store_true",
-                        help="one-pass streaming read of --data_file (not "
-                             "ported yet)")
+                        help="one-pass streaming read of --data_file: a "
+                             "producer thread parses chunks while training "
+                             "runs; the file is never resident. Ends at "
+                             "min(num_iters, EOF)")
     parser.add_argument("--dtype", default="float32",
                         choices=["float32", "bfloat16"],
                         help="worker-math precision under --exec spmd "

@@ -232,9 +232,12 @@ class Engine:
         return results
 
     def make_checkpointer(self, directory: str, **kwargs):
-        raise NotImplementedError(
-            "Engine.make_checkpointer is not ported yet (ROADMAP.md queue 1 "
-            "item 16: the Orbax backend maps to torch.distributed.checkpoint)")
+        """Checkpointer over every table and controller this engine owns
+        (the reference's Dump/Load)."""
+        from minips_tpu_torch.ckpt import make_checkpointer
+
+        return make_checkpointer(directory, self.tables, self.controllers,
+                                 **kwargs)
 
     def barrier(self) -> None:
         raise NotImplementedError(

@@ -10,6 +10,7 @@ from __future__ import annotations
 import torch
 
 from minips_tpu_torch.parallel.mesh import DeviceLike, resolve_device
+from minips_tpu_torch.utils.tree import value_and_grad
 
 
 def init(dim: int, bias: bool = True, *, device: DeviceLike = None):
@@ -37,6 +38,11 @@ def bce_with_logits(logits, y):
 
 def loss_dense(params, batch):
     return bce_with_logits(logits_dense(params, batch["x"]), batch["y"])
+
+
+def grad_fn_dense(params, batch):
+    """(loss, grads) for ``DenseTable.make_step`` and the threaded apps."""
+    return value_and_grad(lambda p: loss_dense(p, batch), params)
 
 
 def logits_sparse(w_rows, vals, mask, bias=0.0):

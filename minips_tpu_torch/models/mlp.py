@@ -14,6 +14,7 @@ import math
 import torch
 
 from minips_tpu_torch.parallel.mesh import DeviceLike, resolve_device
+from minips_tpu_torch.utils.tree import value_and_grad
 
 
 def init(generator: torch.Generator, sizes=(784, 256, 128, 10), *,
@@ -47,6 +48,11 @@ def loss(params, batch, *, compute_dtype=torch.bfloat16):
     logp = torch.log_softmax(logits, dim=-1)
     nll = -torch.gather(logp, -1, batch["y"].long()[:, None])[:, 0]
     return torch.mean(nll)
+
+
+def grad_fn(params, batch):
+    """(loss, grads) of :func:`loss` at its bf16 compute type."""
+    return value_and_grad(lambda p: loss(p, batch), params)
 
 
 def accuracy(params, batch):

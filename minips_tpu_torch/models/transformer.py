@@ -27,7 +27,7 @@ from torch.utils.checkpoint import checkpoint
 
 from minips_tpu_torch.parallel.mesh import DeviceLike, resolve_device
 from minips_tpu_torch.parallel.ring_attention import reference_attention
-from minips_tpu_torch.utils.tree import tree_leaves, tree_map, tree_rebuild
+from minips_tpu_torch.utils.tree import tree_map, value_and_grad
 
 
 def init(gen: torch.Generator, *, vocab: int = 256, dim: int = 64,
@@ -265,16 +265,6 @@ def loss(params, batch, *, heads=4, compute_dtype=torch.bfloat16,
                    compute_dtype=compute_dtype, attn_impl=attn_impl,
                    remat=remat, dropout=dropout)
     return nll(logits, toks[:, 1:])
-
-
-def value_and_grad(fn, params):
-    """``(fn(params), d fn / d params)`` with the gradient a tree like
-    ``params``, taken with respect to the leaves as given, in their own
-    type (``jax.value_and_grad`` for one tree argument)."""
-    leaves = [x.detach().requires_grad_(True) for x in tree_leaves(params)]
-    value = fn(tree_rebuild(params, iter(leaves)))
-    grads = torch.autograd.grad(value, leaves, materialize_grads=True)
-    return value.detach(), tree_rebuild(params, iter(grads))
 
 
 def grad_fn(params, batch, *, heads=4, attn_impl="reference", remat=False,

@@ -13,6 +13,8 @@ from __future__ import annotations
 
 from typing import Any, Callable, Iterator
 
+import torch
+
 PyTree = Any  # nested dicts and lists of tensors
 
 
@@ -38,3 +40,13 @@ def tree_rebuild(template: PyTree, leaves: Iterator) -> PyTree:
 def tree_map(fn: Callable, tree: PyTree) -> PyTree:
     """``fn`` applied to every leaf, the structure kept."""
     return tree_rebuild(tree, iter([fn(x) for x in tree_leaves(tree)]))
+
+
+def value_and_grad(fn, params):
+    """``(fn(params), d fn / d params)`` with the gradient a tree like
+    ``params``, taken with respect to the leaves as given, in their own
+    type (``jax.value_and_grad`` for one tree argument)."""
+    leaves = [x.detach().requires_grad_(True) for x in tree_leaves(params)]
+    value = fn(tree_rebuild(params, iter(leaves)))
+    grads = torch.autograd.grad(value, leaves, materialize_grads=True)
+    return value.detach(), tree_rebuild(params, iter(grads))

@@ -54,11 +54,26 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "        'minips_tpu_torch.train.loop',\n"
         "        'minips_tpu_torch.data.loader',\n"
         "        'minips_tpu_torch.apps.common',\n"
-        "        'minips_tpu_torch.apps.wide_deep_example'}\n"
+        "        'minips_tpu_torch.apps.wide_deep_example',\n"
+        "        'minips_tpu_torch.apps.lr_example',\n"
+        "        'minips_tpu_torch.apps.mlp_example',\n"
+        "        'minips_tpu_torch.apps.mf_example',\n"
+        "        'minips_tpu_torch.apps.word2vec_example',\n"
+        "        'minips_tpu_torch.models.mf',\n"
+        "        'minips_tpu_torch.models.word2vec',\n"
+        "        'minips_tpu_torch.ckpt',\n"
+        "        'minips_tpu_torch.ckpt.checkpoint',\n"
+        "        'minips_tpu_torch.data.libsvm',\n"
+        "        'minips_tpu_torch.data.movielens',\n"
+        "        'minips_tpu_torch.data.mnist',\n"
+        "        'minips_tpu_torch.data.text',\n"
+        "        'minips_tpu_torch.data.criteo',\n"
+        "        'minips_tpu_torch.data.native',\n"
+        "        'minips_tpu_torch.utils.native_lib'}\n"
         "print(len(names), sorted(need - set(names)), bad)\n")
     assert r.returncode == 0, r.stderr
     count, rest = r.stdout.split(" ", 1)
-    assert int(count) >= 40 and rest.strip() == "[] []", r.stdout
+    assert int(count) >= 55 and rest.strip() == "[] []", r.stdout
 
 
 def test_importing_the_build_module_runs_nothing():
@@ -91,6 +106,14 @@ def test_importing_the_build_module_runs_nothing():
     "next(prefetch_to_device(iter([{}])))",
     "import sys; sys.argv = ['wd', '--num_iters', '1']; "
     "from minips_tpu_torch.apps.wide_deep_example import main; main()",
+    "import sys; sys.argv = ['lr', '--num_iters', '1']; "
+    "from minips_tpu_torch.apps.lr_example import main; main()",
+    "import sys; sys.argv = ['mlp', '--num_iters', '1']; "
+    "from minips_tpu_torch.apps.mlp_example import main; main()",
+    "import sys; sys.argv = ['mf', '--num_iters', '1']; "
+    "from minips_tpu_torch.apps.mf_example import main; main()",
+    "import sys; sys.argv = ['w2v', '--num_iters', '1']; "
+    "from minips_tpu_torch.apps.word2vec_example import main; main()",
 ])
 def test_entry_points_default_to_cuda_and_raise_without_it(entry):
     _no_cuda()

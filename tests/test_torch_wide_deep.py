@@ -9,6 +9,8 @@ size of its gradient, so a gradient near zero whose sign the two
 frameworks' summation orders flip moves that weight by up to 2 lr a step
 (the JAX package's own spmd and threaded runs differ by 2e-5 this way).
 Hence LOSS_TOL = 2e-4 on every loss and AUC_TOL = 1e-3 on the holdout AUC.
+With both towers at float32 (the Criteo-file test) the losses agree within
+F32_LOSS_TOL = 1e-5.
 """
 
 from __future__ import annotations
@@ -22,12 +24,14 @@ import pytest
 from minips_tpu.apps import wide_deep_example as jwd
 from minips_tpu.utils.metrics import MetricsLogger as JMetrics
 from minips_tpu_torch import interop
+from minips_tpu_torch.apps import common as tcommon
 from minips_tpu_torch.apps import wide_deep_example as twd
 from minips_tpu_torch.core import config as tcfg
 from minips_tpu_torch.utils.metrics import MetricsLogger
 
 LOSS_TOL = 2e-4
 AUC_TOL = 1e-3
+F32_LOSS_TOL = 1e-5
 
 
 def _cfgs(consistency="bsp", staleness=0, workers=1, iters=5):
@@ -118,8 +122,12 @@ def test_threaded_ssp_four_workers_bounds_the_clock_gap(monkeypatch):
 
 @pytest.mark.parametrize("kw,match", [
     ({"exec_mode": "multiproc"}, "item 15"),
-    ({"data_file": "criteo.tsv"}, "item 9.4"),
-    ({"stream": True}, "item 9.4"),
+    # the readers are ported: --stream needs a file, resident rows for a
+    # holdout, and the spmd path
+    ({"stream": True}, "needs --data_file"),
+    ({"data_file": "criteo.tsv", "stream": True}, "--eval_frac"),
+    ({"exec_mode": "threaded", "data_file": "criteo.tsv", "stream": True},
+     "only wired into --exec spmd"),
     ({"exec_mode": "threaded", "dtype": "bfloat16"}, "--dtype"),
 ])
 def test_unported_modes_raise(kw, match):
@@ -152,4 +160,47 @@ def test_spmd_bf16_trains():
     ([[0.0, 1.0, 2.0], [0.0, 1.0]], [10, 10], 3.0, 0.0),
 ])
 def test_threaded_rate_leaves_out_the_warm_up(starts, sizes, end, want):
-    assert twd._steady_rate(starts, sizes, end) == pytest.approx(want)
+    assert tcommon.steady_rate(starts, sizes, end) == pytest.approx(want)
+
+
+@pytest.mark.parametrize("stream", [False, True])
+def test_data_file_matches_jax(monkeypatch, tmp_path, stream):
+    """``--data_file`` (resident, with a holdout) and ``--stream`` (a
+    producer thread parsing the file in chunks) through both packages'
+    readers, from the same weights. The log-transformed Criteo counts
+    reach the tower at up to ~5, where the bf16 roundings of the two
+    frameworks differ more than on the synthetic rows: both towers compute
+    in float32 here, and every loss agrees within F32_LOSS_TOL."""
+    import functools
+
+    import jax.numpy as jnp
+    import torch
+
+    from minips_tpu.data.criteo import write_criteo
+    from minips_tpu.models import mlp as jmlp
+    from minips_tpu_torch.models import mlp as tmlp
+
+    monkeypatch.setattr(jmlp, "apply", functools.partial(
+        jmlp.apply, compute_dtype=jnp.float32))
+    monkeypatch.setattr(tmlp, "apply", functools.partial(
+        tmlp.apply, compute_dtype=torch.float32))
+
+    d = jwd.synthetic.criteo_like(2048, seed=5)
+    path = str(tmp_path / "day_0.tsv")
+    write_criteo(path, d["y"], np.abs(d["dense"] * 10).astype(np.int64),
+                 d["cat"])
+    jc, tc = _cfgs()
+    _load_jax_weights(monkeypatch, jc, False)
+    args = _args("spmd", "widedeep")
+    args.data_file, args.stream = path, stream
+    args.eval_frac = None if stream else 0.2
+    jargs = argparse.Namespace(**{k: v for k, v in vars(args).items()
+                                  if k != "device"})
+    want = jwd.run(jc, jargs, JMetrics(None, verbose=False))
+    got = twd.run(tc, args, MetricsLogger(None, verbose=False))
+    assert len(got["losses"]) == len(want["losses"]) == 5
+    assert abs(got["losses"][0] - want["losses"][0]) <= 1e-6
+    np.testing.assert_allclose(got["losses"], want["losses"], rtol=0,
+                               atol=F32_LOSS_TOL)
+    if not stream:
+        assert abs(got["auc"] - want["auc"]) <= AUC_TOL
