@@ -101,7 +101,25 @@ on failure:
     200 iterations) in spmd and threaded ASP (4 workers): finite and
     falling loss, the row gather exactly twice per worker step, samples/s,
     the first 3 spmd losses against the CPU port's; then the device's idle
-    share on the LR sparse, MF and word2vec paths.
+    share on the LR sparse, MF and word2vec paths;
+15. the sharded PS, in one rank spawned by ``parallel/mesh.py:run_ranks``
+    that joins an NCCL process group of world size 1 (its ``FileStore``
+    under ``build/``): the LR + MLP pair built with ``group=`` at full
+    width beside the same pair built with ``group=None``, 20 steps each in
+    PyTorch's deterministic mode (``index_add_``'s atomics sum in no fixed
+    order otherwise): the row gather exactly twice a step, every loss and
+    the final tables bit-identical to ``group=None``'s (at world size 1
+    every collective is a copy and each owner's row update sees the same
+    slots); then both pairs' step times, in turns, whose difference is
+    the collectives' cost at world size 1;
+16. in the same rank, the full-width LM through the group at
+    ``comm="bfloat16"`` and ``"int8"``, 10 + 30 steps each: the int8
+    codes and scales of the first pull bit-identical to the CPU port's
+    ``_quantize_blocks`` on the same params, finite and falling loss, each
+    flash kernel once per block per step, step time, tokens/s and peak
+    memory (printed beside phase 8's float32 step), and a small LM's first
+    3 losses through the group against the CPU port's with
+    ``group=None`` at the same ``comm``.
 
 The last two lines are a JSON object with every kernel's numbers (its
 launches on each path beside them) and then ``{"ok": true, "device":
@@ -210,6 +228,15 @@ MF_EVAL_FRAC = 0.1
 # no fixed order, and the batch-sized gradient scale (lr x B = 51) carries
 # a rounding difference into the next step's rows: ~1e-6 after 3 steps.
 APP_LOSS_TOL = 1e-4
+# phases 15-16: the sharded PS through an NCCL group of world size 1, in a
+# rank spawned by parallel/mesh.py:run_ranks (its FileStore under build/)
+GROUP_TIMEOUT_S = 900.0
+GROUP_COMMS = ("bfloat16", "int8")
+# |loss(card, group, comm) - loss(CPU, group=None, comm)| over a small LM's
+# first CPU_STEPS steps, set before the first run: the codec runs on both
+# sides (the first pull's codes are the same bits), the rest is the small
+# LM check's bf16 arithmetic, whose bound this keeps
+COMM_LM_LOSS_TOL = LM_LOSS_TOL
 
 
 def check(cond: bool, msg: str) -> None:
@@ -510,7 +537,9 @@ def device_time(torch, run, steps: int, step_ms: float) -> dict:
                                calls + 1)
     busy = sum(ms for ms, _ in by_name.values()) / steps
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
-    gather_ms = sum(ms for n, (ms, _) in by_name.items() if "gather_" in n)
+    # K1's own kernels, not PyTorch's index gathers or NCCL's all_gather
+    gather_ms = sum(ms for n, (ms, _) in by_name.items()
+                    if re.search(r"\bgather_(narrow|rows)_kernel\b", n))
     return {
         "device_busy_ms": busy if by_name else "not measured",
         "gather_rows_ms": gather_ms / steps if by_name else "not measured",
@@ -519,6 +548,200 @@ def device_time(torch, run, steps: int, step_ms: float) -> dict:
         "device_ops": sum(c for _, c in by_name.values()) / steps,
         "top": [{"name": n[:80], "ms": ms / steps, "calls": c / steps}
                 for n, (ms, c) in top]}
+
+
+def run_pair_steps(pair, steps):
+    """``steps`` steps of both models of an LR + MLP pair on its two
+    batches in turn; the losses as device scalars."""
+    return [(pair.lr_step(pair.batches[i % 2]),
+             pair.mlp_step(pair.batches[i % 2])) for i in range(steps)]
+
+
+def run_lm_steps(model, steps):
+    return [model.table.step_inplace(model.step, model.batches[i % 2])
+            for i in range(steps)]
+
+
+def state_bits(state) -> list:
+    """A table state (``interop``'s numpy layout) as a flat list of bit
+    patterns, for a comparison that tells -0.0 from 0.0."""
+    import numpy as np
+
+    if isinstance(state, dict):
+        leaves = [state[k] for k in sorted(state)]
+    else:
+        leaves = [state[0], *state[1]]
+    return [np.ascontiguousarray(x).view(np.uint8) for x in leaves]
+
+
+def chain_seconds(torch, run) -> float:
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def group_phases(group, dev, cfg) -> dict:
+    """Phases 15 and 16, on the one rank of a process group of world size
+    1 (NCCL on the card): the LR + MLP pair and the LM through the group.
+    ``cfg`` holds the sizes (the card's full widths when run by ``main``).
+    Returns the numbers for the parent to print; raises on a failed check.
+    """
+    import numpy as np
+    import torch
+
+    from minips_tpu_torch import interop
+    from minips_tpu_torch.apps.lm import build_lm
+    from minips_tpu_torch.apps.lrmlp import build_lrmlp
+    from minips_tpu_torch.ops import flash_attention as tfa
+    from minips_tpu_torch.ops.gather import gather_rows
+    from minips_tpu_torch.ops.quantized_comm import _quantize_blocks
+
+    card = cfg["card"]
+    out = {}
+    # --------------------------- 15. the LR + MLP pair through the group
+    b, chain = cfg["batch"], cfg["chain"]
+    alone = build_lrmlp(b, dev, seed=0)
+    grouped = build_lrmlp(b, dev, seed=0, group=group)
+    names = ("wide", "emb", "lin", "deep")
+
+    def states(pair):
+        return {k: state_bits(interop.sparse_to_numpy(getattr(pair, k))
+                              if k in ("wide", "emb") else
+                              interop.dense_to_numpy(getattr(pair, k)))
+                for k in names}
+
+    def same(a, b):
+        return all(len(a[k]) == len(b[k]) and all(
+            np.array_equal(x, y) for x, y in zip(a[k], b[k])) for k in names)
+
+    check(same(states(alone), states(grouped)),
+          "group pair: initial tables differ from the group=None pair's")
+    # index_add_ sums duplicate slots with atomics in no fixed order on the
+    # card: the bit-for-bit comparison runs both pairs in PyTorch's
+    # deterministic mode (a sorted accumulation; the gather kernel is
+    # deterministic as it is)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        losses_alone = [(float(x), float(y))
+                        for x, y in run_pair_steps(alone, chain)]
+        torch.cuda.synchronize()
+        gather_rows.launches = 0
+        losses_group = [(float(x), float(y))
+                        for x, y in run_pair_steps(grouped, chain)]
+        torch.cuda.synchronize()
+        k1 = gather_rows.launches
+    finally:
+        torch.use_deterministic_algorithms(False)
+    check(k1 == 2 * chain, f"group pair: gather_rows launched {k1} times "
+          f"in {chain} steps, expected {2 * chain}")
+    check(losses_group[:CPU_STEPS] == losses_alone[:CPU_STEPS],
+          f"group pair: first {CPU_STEPS} losses {losses_group[:CPU_STEPS]} "
+          f"differ from group=None's {losses_alone[:CPU_STEPS]}")
+    check(all(math.isfinite(x) for p in losses_group for x in p)
+          and losses_group[-1][0] < losses_group[0][0]
+          and losses_group[-1][1] < losses_group[0][1],
+          f"group pair: loss did not fall: {losses_group}")
+    check(same(states(alone), states(grouped)),
+          f"group pair: tables after {chain} steps differ from group=None's")
+    # step time of both, in turns (alone, group, group, alone, ...)
+    times = {"group_none": [], "group_ws1": []}
+    for rep_ in range(cfg["reps"]):
+        order = (("group_none", alone), ("group_ws1", grouped))
+        for key, pair in (order if rep_ % 2 == 0 else order[::-1]):
+            times[key].append(chain_seconds(
+                torch, lambda: run_pair_steps(pair, chain)))
+    med = {k: statistics.median(v) for k, v in times.items()}
+    out["pair"] = {
+        "card": card, "batch": b, "chain": chain, "reps": cfg["reps"],
+        "gather_launches": k1, "gathers_per_step": k1 / chain,
+        "losses_bit_identical": True, "tables_bit_identical": True,
+        "loss_first": losses_group[0], "loss_last": losses_group[-1],
+        "step_ms": {k: 1e3 * v / chain for k, v in med.items()},
+        "samples_per_s": {k: b * chain / v for k, v in med.items()},
+        "collective_ms_per_step": 1e3 * (med["group_ws1"]
+                                         - med["group_none"]) / chain,
+        "chain_s": times,
+        # where the difference goes: device busy time against host time
+        "device": {key: device_time(
+            torch, lambda: run_pair_steps(pair, PROFILED_STEPS),
+            PROFILED_STEPS, 1e3 * med[key] / chain)
+            for key, pair in (("group_none", alone), ("group_ws1", grouped))}}
+    print("group pair: " + json.dumps(out["pair"]), flush=True)
+    del alone, grouped
+
+    # ------------------ 16. the LM through the group at comm bf16 and int8
+    flash = ("flash_forward", "flash_bwd_dq", "flash_bwd_dkv")
+    lm_cfg = dict(dim=cfg["lm_dim"], depth=cfg["lm_depth"], device=dev,
+                  seed=0)
+    out["lm"] = {}
+    for comm in GROUP_COMMS:
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        lm = build_lm(cfg["lm_b"], cfg["lm_t"], comm=comm, group=group,
+                      **lm_cfg)
+        codes = None
+        if comm == "int8":
+            # the first pull's codes and scales: the card's against the CPU
+            # port's _quantize_blocks on the same params
+            q, sc = _quantize_blocks(lm.table.params)
+            q_h, sc_h = _quantize_blocks(lm.table.params.cpu())
+            check(torch.equal(q.cpu(), q_h) and torch.equal(
+                sc.cpu().view(torch.int32), sc_h.view(torch.int32)),
+                "int8 comm: the card's block codes or scales differ from "
+                "the CPU port's")
+            codes = {"elements": lm.table.params.numel(),
+                     "blocks": int(sc.numel()), "bit_identical": True}
+            del q, sc, q_h, sc_h
+        torch.cuda.synchronize()
+        for name in flash:
+            getattr(tfa, name).launches = 0
+        losses = [float(x) for x in run_lm_steps(lm, cfg["lm_chain"])]
+        torch.cuda.synchronize()
+        launches = {name: getattr(tfa, name).launches for name in flash}
+        check(all(math.isfinite(x) for x in losses)
+              and losses[-1] < losses[0],
+              f"LM at comm {comm}: losses {losses}")
+        want = cfg["lm_depth"] * cfg["lm_chain"]
+        check(all(v == want for v in launches.values()),
+              f"LM at comm {comm}: flash launches {launches}, expected "
+              f"{want} each")
+        chains = [chain_seconds(torch, lambda: run_lm_steps(
+            lm, cfg["lm_chain"])) for _ in range(cfg["lm_reps"])]
+        med = statistics.median(chains)
+        out["lm"][comm] = {
+            "card": card, "comm": comm, "batch": cfg["lm_b"],
+            "seq": cfg["lm_t"], "chain": cfg["lm_chain"],
+            "reps": cfg["lm_reps"],
+            "step_ms": 1e3 * med / cfg["lm_chain"],
+            "tokens_per_s": cfg["lm_b"] * cfg["lm_t"] * cfg["lm_chain"] / med,
+            "chain_s": chains,
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "losses": losses, "launches": launches, "first_pull": codes}
+        del lm
+
+        small = dict(dim=cfg["small_dim"], depth=2, vocab=1024, seed=0,
+                     comm=comm)
+        card_lm = build_lm(2, cfg["small_t"], device=dev, group=group,
+                           **small)
+        state = interop.dense_to_numpy(card_lm.table)
+        card_l = [float(x) for x in run_lm_steps(card_lm, CPU_STEPS)]
+        cpu_lm = build_lm(2, cfg["small_t"], device="cpu", **small)
+        interop.load_dense(cpu_lm.table, *state)
+        cpu_l = [float(x) for x in run_lm_steps(cpu_lm, CPU_STEPS)]
+        diff = max(abs(a - b) for a, b in zip(card_l, cpu_l))
+        check(diff <= COMM_LM_LOSS_TOL, f"small LM at comm {comm}: card "
+              f"(group) and CPU (group=None) losses differ by {diff} > "
+              f"{COMM_LM_LOSS_TOL}: card {card_l} cpu {cpu_l}")
+        out["lm"][comm]["small_lm"] = {"card": card_l, "cpu": cpu_l,
+                                       "max_abs_diff": diff,
+                                       "tolerance": COMM_LM_LOSS_TOL}
+        print(f"LM through the group at comm {comm}: "
+              + json.dumps(out["lm"][comm]), flush=True)
+        del card_lm, cpu_lm
+    return out
 
 
 def main() -> int:
@@ -723,16 +946,9 @@ def main() -> int:
         "deep": interop.dense_to_numpy(p.deep),
     }
 
-    def run_steps(pair, steps):
-        out = []
-        for i in range(steps):
-            b = pair.batches[i % 2]
-            out.append((pair.lr_step(b), pair.mlp_step(b)))
-        return out
-
     torch.cuda.synchronize()
     gather_rows.launches = 0
-    losses = run_steps(p, CHAIN)
+    losses = run_pair_steps(p, CHAIN)
     torch.cuda.synchronize()
     main_launches = {"gather_rows": gather_rows.launches}
     losses = [(float(a), float(b)) for a, b in losses]
@@ -752,7 +968,7 @@ def main() -> int:
     interop.load_sparse(cpu.emb, init["emb"])
     interop.load_dense(cpu.lin, *init["lin"])
     interop.load_dense(cpu.deep, *init["deep"])
-    cpu_losses = [(float(a), float(b)) for a, b in run_steps(cpu, CPU_STEPS)]
+    cpu_losses = [(float(a), float(b)) for a, b in run_pair_steps(cpu, CPU_STEPS)]
     diff = max(abs(g - c) for gp, cp in zip(losses, cpu_losses)
                for g, c in zip(gp, cp))
     check(diff <= LOSS_TOL, f"card and CPU losses differ by {diff} > "
@@ -764,7 +980,7 @@ def main() -> int:
     for _ in range(REPS):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        last = run_steps(p, CHAIN)[-1]
+        last = run_pair_steps(p, CHAIN)[-1]
         torch.cuda.synchronize()
         chain_s.append(time.perf_counter() - t0)
         check(all(math.isfinite(float(x)) for x in last), "non-finite loss")
@@ -777,7 +993,7 @@ def main() -> int:
           f"{REPS} chains): " + json.dumps(step), flush=True)
 
     print("device time per step (torch.profiler): " + json.dumps(
-        device_time(torch, lambda: run_steps(p, PROFILED_STEPS),
+        device_time(torch, lambda: run_pair_steps(p, PROFILED_STEPS),
                     PROFILED_STEPS, step["step_ms"])), flush=True)
 
     # ------------------------------------------------------------ 6. pull
@@ -860,15 +1076,11 @@ def main() -> int:
     torch.cuda.reset_peak_memory_stats()
     lm = build_lm(LM_B, LM_T, dim=LM_DIM, depth=LM_DEPTH, device=dev, seed=0)
 
-    def lm_steps(model, steps):
-        return [model.table.step_inplace(model.step, model.batches[i % 2])
-                for i in range(steps)]
-
     torch.cuda.synchronize()
     gather_rows.launches = 0
     for name in flash:
         getattr(tfa, name).launches = 0
-    lm_losses = lm_steps(lm, LM_CHAIN)
+    lm_losses = run_lm_steps(lm, LM_CHAIN)
     torch.cuda.synchronize()
     lm_launches = {name: getattr(tfa, name).launches for name in flash}
     lm_launches["gather_rows"] = gather_rows.launches
@@ -891,7 +1103,7 @@ def main() -> int:
     for _ in range(LM_REPS):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        last = lm_steps(lm, LM_CHAIN)[-1]
+        last = run_lm_steps(lm, LM_CHAIN)[-1]
         torch.cuda.synchronize()
         lm_chain_s.append(time.perf_counter() - t0)
         check(math.isfinite(float(last)), "non-finite LM loss")
@@ -906,17 +1118,17 @@ def main() -> int:
     print("LM step time on the card (median of "
           f"{LM_REPS} chains): " + json.dumps(lm_step), flush=True)
     print("LM device time per step (torch.profiler): " + json.dumps(
-        device_time(torch, lambda: lm_steps(lm, LM_PROFILED_STEPS),
+        device_time(torch, lambda: run_lm_steps(lm, LM_PROFILED_STEPS),
                     LM_PROFILED_STEPS, lm_step["step_ms"])), flush=True)
     del lm
 
     small = dict(dim=256, depth=2, vocab=1024, seed=0)
     card_lm = build_lm(2, 256, device=dev, **small)
     state = interop.dense_to_numpy(card_lm.table)
-    card_l = [float(x) for x in lm_steps(card_lm, CPU_STEPS)]
+    card_l = [float(x) for x in run_lm_steps(card_lm, CPU_STEPS)]
     cpu_lm = build_lm(2, 256, device="cpu", **small)
     interop.load_dense(cpu_lm.table, *state)
-    cpu_l = [float(x) for x in lm_steps(cpu_lm, CPU_STEPS)]
+    cpu_l = [float(x) for x in run_lm_steps(cpu_lm, CPU_STEPS)]
     lm_diff = max(abs(a - b) for a, b in zip(card_l, cpu_l))
     check(lm_diff <= LM_LOSS_TOL, f"small LM: card and CPU losses differ by "
           f"{lm_diff} > {LM_LOSS_TOL}: card {card_l} cpu {cpu_l}")
@@ -1106,7 +1318,7 @@ def main() -> int:
         torch.cuda.synchronize()
         for name in flash:
             getattr(tfa, name).launches = 0
-        losses_o = [float(x) for x in lm_steps(lm, LM_CHAIN)]
+        losses_o = [float(x) for x in run_lm_steps(lm, LM_CHAIN)]
         torch.cuda.synchronize()
         launches_o = {name: getattr(tfa, name).launches for name in flash}
         check(all(math.isfinite(x) for x in losses_o),
@@ -1122,7 +1334,7 @@ def main() -> int:
         for _ in range(LM_REPS):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            last = lm_steps(lm, LM_CHAIN)[-1]
+            last = run_lm_steps(lm, LM_CHAIN)[-1]
             torch.cuda.synchronize()
             chain_o.append(time.perf_counter() - t0)
             check(math.isfinite(float(last)), "non-finite LM loss")
@@ -1171,10 +1383,10 @@ def main() -> int:
 
         card_lm = build_lm(2, 256, device=dev, opt_state=opt, **small)
         state = interop.dense_to_numpy(card_lm.table)
-        card_l = [float(x) for x in lm_steps(card_lm, CPU_STEPS)]
+        card_l = [float(x) for x in run_lm_steps(card_lm, CPU_STEPS)]
         cpu_lm = build_lm(2, 256, device="cpu", opt_state=opt, **small)
         interop.load_dense(cpu_lm.table, *state)
-        cpu_l = [float(x) for x in lm_steps(cpu_lm, CPU_STEPS)]
+        cpu_l = [float(x) for x in run_lm_steps(cpu_lm, CPU_STEPS)]
         lm_diff = max(abs(a - b) for a, b in zip(card_l, cpu_l))
         check(lm_diff <= LM_LOSS_TOL, f"small LM at opt_state {opt}: card "
               f"and CPU losses differ by {lm_diff} > {LM_LOSS_TOL}: card "
@@ -1524,11 +1736,43 @@ def main() -> int:
               flush=True)
     os.remove(ratings)
 
-    kernels[0]["launches_by_path"] = dict(lrmlp=main_launches["gather_rows"],
-                                          **wd_launches, **app_launches)
+    # ------------- 15-16. the sharded PS through an NCCL group of one rank
+    from minips_tpu_torch.parallel.mesh import run_ranks
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    group_cfg = {"card": card, "batch": B, "chain": CHAIN, "reps": REPS,
+                 "lm_b": LM_B, "lm_t": LM_T, "lm_dim": LM_DIM,
+                 "lm_depth": LM_DEPTH, "lm_chain": LM_CHAIN,
+                 "lm_reps": LM_REPS, "small_dim": 256, "small_t": 256}
+    t0 = time.perf_counter()
+    grp = run_ranks(group_phases, 1, group_cfg, timeout=GROUP_TIMEOUT_S,
+                    store_dir=os.path.join(REPO, "build",
+                                           "chip_smoke_store"))[0]
+    group_s = time.perf_counter() - t0
+    print(f"sharded PS through an NCCL group of world size 1 (one spawned "
+          f"rank, {group_s:.1f} s): the LR + MLP pair's step "
+          + json.dumps({"phase 5 (group=None)": step["step_ms"],
+                        **grp["pair"]["step_ms"]})
+          + " ms; 20 steps bit-identical to group=None, 2 gathers a step",
+          flush=True)
+    print("LM step through the group, beside phase 8's f32 step: " + json.dumps(
+        {"float32 (phase 8, group=None)": {
+            k: lm_step[k] for k in ("step_ms", "tokens_per_s",
+                                    "peak_mem_gb")},
+         **{comm: {k: grp["lm"][comm][k] for k in (
+             "step_ms", "tokens_per_s", "peak_mem_gb")}
+            for comm in GROUP_COMMS}}), flush=True)
+
+    kernels[0]["launches_by_path"] = dict(
+        lrmlp=main_launches["gather_rows"], **wd_launches, **app_launches,
+        lrmlp_group_ws1=grp["pair"]["gather_launches"])
     for k in kernels[1:]:
         k["launches_by_path"] = {f"lm_{opt}": v[k["name"]]
                                  for opt, v in lm_paths.items()}
+        k["launches_by_path"].update({
+            f"lm_comm_{comm}": grp["lm"][comm]["launches"][k["name"]]
+            for comm in GROUP_COMMS})
 
     print(f"card: {card}")
     print(json.dumps({"kernels": kernels}))

@@ -26,8 +26,7 @@ import torch
 
 from minips_tpu_torch.consistency import ConsistencyController, make_controller
 from minips_tpu_torch.core.config import TableConfig
-from minips_tpu_torch.parallel.mesh import (WORLD_SIZE, DeviceLike,
-                                            resolve_device)
+from minips_tpu_torch.parallel.mesh import DeviceLike, resolve_device
 from minips_tpu_torch.tables.dense import DenseTable
 from minips_tpu_torch.tables.sparse import SparseTable
 
@@ -136,11 +135,11 @@ class Engine:
     # -------------------------------------------------------------- lifecycle
     def start_everything(self) -> "Engine":
         """Device bootstrap (the JAX package builds its mesh here). Logical
-        workers default to the number of devices, ``WORLD_SIZE``; more
-        logical workers than devices is allowed (they timeshare the
-        card)."""
+        workers default to the number of devices, one: the Engine runs on
+        one device and takes no process group; more logical workers than
+        devices is allowed (they timeshare the card)."""
         self.device = resolve_device(self._requested_device)
-        self.num_workers = self._requested_workers or WORLD_SIZE
+        self.num_workers = self._requested_workers or 1
         self._started = True
         return self
 

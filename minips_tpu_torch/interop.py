@@ -20,6 +20,13 @@ any 2-byte array into a bfloat16 leaf bit for bit, and ``dense_to_numpy``
 returns bfloat16 leaves as uint16 bit patterns (compare them with
 ``np.asarray(leaf).view(np.uint16)``). This module imports neither JAX nor the JAX
 package: the caller does the ``jax.tree.leaves`` on its side.
+
+Every array here is global, as the JAX table holds it. Into a table
+sharded over a process group, each rank loads the same global arrays and
+keeps its own range; out of one, the shards are gathered, a collective
+that every rank calls (the table's ``state_dict``). A dense table's
+padded size depends on its shard count, so its flat state carries across
+only at the JAX mesh's size.
 """
 
 from __future__ import annotations
@@ -34,12 +41,14 @@ from minips_tpu_torch.utils.tree import tree_map
 
 
 def load_sparse(table: SparseTable, state: dict) -> None:
-    """Load a JAX ``SparseTable.state_dict()`` (numpy arrays)."""
+    """Load a JAX ``SparseTable.state_dict()`` (numpy arrays, global);
+    each rank keeps its rows."""
     table.load_state_dict({k: np.asarray(v) for k, v in state.items()})
 
 
 def sparse_to_numpy(table: SparseTable) -> dict:
-    """The port's table as a JAX-layout ``state_dict``."""
+    """The port's table as a global JAX-layout ``state_dict`` (collective
+    under a group)."""
     return table.state_dict()
 
 
@@ -53,14 +62,15 @@ def tree_from_numpy(tree, device: DeviceLike = None):
 
 def load_dense(table: DenseTable, params, opt_leaves) -> None:
     """Load the JAX table's padded flat params and its opt-state leaves
-    (``jax.tree.leaves(opt_state)``, in that order); bfloat16 leaves are
-    read bit for bit."""
+    (``jax.tree.leaves(opt_state)``, in that order), global; each rank
+    keeps its shard. bfloat16 leaves are read bit for bit."""
     table.load_state_dict({"params": np.asarray(params),
                            "opt_state": [np.asarray(x) for x in opt_leaves]})
 
 
 def dense_to_numpy(table: DenseTable) -> tuple[np.ndarray, list]:
-    """``(params, opt_leaves)`` in the JAX package's layout and leaf order,
-    bfloat16 leaves as their uint16 bit patterns."""
+    """``(params, opt_leaves)``, global, in the JAX package's layout and
+    leaf order, bfloat16 leaves as their uint16 bit patterns (collective
+    under a group)."""
     state = table.state_dict()
     return state["params"], state["opt_state"]

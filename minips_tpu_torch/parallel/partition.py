@@ -3,9 +3,10 @@
 package, whose ``__init__`` pulls in JAX).
 
 A table of ``n`` keys padded to ``P`` is laid out as ``shards`` contiguous
-ranges of ``P/shards`` keys. At world size 1 the padding is only the
-``align`` rounding, but the layout is kept so that a sharded table of a
-later slice exchanges state with the JAX package unchanged.
+ranges of ``P/shards`` keys, shard ``r`` on rank ``r`` of the table's
+process group. ``P`` is the JAX table's at the same shard count (adam8's
+block alignment included), so the two packages exchange flat state
+unchanged at the same ``n``; at another ``n`` the padding may differ.
 """
 
 from __future__ import annotations

@@ -9,10 +9,20 @@ as flat vectors; for the MLP tower that order is ``b0, b1, b2, w0, w1,
 w2``, for LR ``b, w``, for the LM ``blocks[0..]``, ``ln_f``, ``pos_emb``,
 ``tok_emb``.
 
-World size is 1: the pull is a read and the push the updater on the one
-shard. ``make_step`` fuses pull, gradient, push and update into one call,
-as the JAX package's does, with ``accum``, ``compute_dtype``,
-``grad_reduce`` and the global-norm clip.
+The table is range-sharded over a process group (``group=``, see
+``parallel/mesh.py``): rank ``r`` of ``n`` holds the ``r``-th of ``n``
+contiguous shards of the padded vector and that shard's optimizer state,
+as device ``r`` of the JAX table's ``data`` axis does. The pull is an
+all-gather; the push runs the updater on the owner shard. ``make_step``
+fuses pull, gradient, push and update into one call, as the JAX package's
+does, with ``comm`` (the quantized collectives), ``accum``,
+``compute_dtype``, ``grad_reduce`` and the global-norm clip.
+``group=None`` is one device holding the one shard, with no collective.
+
+The optimizer state's leaves follow the JAX table's specs: a 0-d leaf
+(adam's count, a schedule's count) is replicated on every rank; a 1-D leaf
+(moments, accumulators, the decay mask, adam8's codes and its per-block
+scales) is range-sharded like the params.
 """
 
 from __future__ import annotations
@@ -23,8 +33,12 @@ from typing import Any, Callable, Optional
 import numpy as np
 import torch
 
-from minips_tpu_torch.parallel.mesh import (WORLD_SIZE, DeviceLike,
-                                            resolve_device)
+from minips_tpu_torch.ops.quantized_comm import (_check,
+                                                 quantized_all_gather,
+                                                 quantized_psum_scatter)
+from minips_tpu_torch.parallel.mesh import (DeviceLike, Group, all_gather,
+                                            all_reduce_sum, resolve_device,
+                                            world)
 from minips_tpu_torch.parallel.partition import RangePartitioner
 from minips_tpu_torch.tables.updaters import (LearningRate, Updater,
                                               make_updater)
@@ -92,7 +106,8 @@ def cast_floating(tree: PyTree, dtype: Optional[torch.dtype]) -> PyTree:
 
 
 class DenseTable:
-    """A dense parameter table: one flat vector plus its updater state."""
+    """A dense parameter table: one flat vector, range-sharded over the
+    group, plus its updater state."""
 
     def __init__(
         self,
@@ -105,16 +120,20 @@ class DenseTable:
         tx: Optional[Updater] = None,
         updater_kwargs: Optional[dict] = None,
         device: DeviceLike = None,
+        group: Group = None,
     ):
         """``tx`` is an updater built by the caller (it replaces
         ``updater``, ``lr`` and ``updater_kwargs``), as in the JAX
-        package."""
+        package. ``group``: the process group the table is sharded over
+        (every rank builds the table from the same template); ``None`` is
+        one device."""
         if grad_reduce not in ("mean", "sum"):
             raise ValueError("grad_reduce must be 'mean' or 'sum'")
         self.name = name
         self.grad_reduce = grad_reduce
         self.device = resolve_device(device)
-        self.num_shards = WORLD_SIZE
+        self.group = group
+        self.rank, self.num_shards = world(group)
 
         flat, self._unravel = ravel(template, self.device)
         self.num_keys = int(flat.shape[0])
@@ -126,6 +145,8 @@ class DenseTable:
         self.partitioner = RangePartitioner(self.num_keys, self.num_shards,
                                             align=align)
         self.padded = self.partitioner.padded
+        shard = self.partitioner.shard_size
+        self._lo = self.rank * shard  # this rank's range [lo, lo + shard)
         # global-norm clipping is the table's, over the whole gradient (the
         # JAX table intercepts it the same way for its sharded update)
         self._clip_norm = float(kw.pop("clip_norm", 0.0) or 0.0)
@@ -135,12 +156,13 @@ class DenseTable:
                 raise ValueError(
                     f"decay_mask ravels to {tuple(mflat.shape)}, params to "
                     f"{tuple(flat.shape)} — the mask must be params-shaped")
-            kw["decay_mask"] = self._pad(mflat.to(flat.dtype))
+            # padded, then sliced to this rank's shard: the mask rides in
+            # the state as a range-sharded leaf
+            kw["decay_mask"] = self._shard(self._pad(mflat.to(flat.dtype)))
         self.tx = tx if tx is not None else make_updater(updater, lr, **kw)
         # the updater runs on one range shard: its state must fit one (a
         # quantized state's blocks must not straddle two); a probe on the
         # meta device allocates nothing
-        shard = self.partitioner.shard_size
         try:
             self.tx.init(torch.empty(shard, device="meta"))
         except ValueError as e:
@@ -149,13 +171,33 @@ class DenseTable:
                 f"keys ({e}): each shard must hold whole blocks (use "
                 "updater='adam8' so the table aligns its padding, or pick a "
                 "block that divides the shard size)") from e
-        self.params = self._pad(flat)
+        self.params = self._shard(self._pad(flat))
         self.opt_state = self.tx.init(self.params)
+        bad = [tuple(x.shape) for x in self.opt_state if x.dim() > 1]
+        if bad:
+            raise ValueError(f"updater state leaves must be 0-d (replicated) "
+                             f"or 1-D (range-sharded), got shapes {bad}")
 
     def _pad(self, flat: torch.Tensor) -> torch.Tensor:
         out = torch.zeros(self.padded, dtype=flat.dtype, device=self.device)
         out[: self.num_keys] = flat
         return out
+
+    def _shard(self, full: torch.Tensor) -> torch.Tensor:
+        """This rank's range of a global 1-D leaf (``full`` itself under
+        ``group=None``), whatever the leaf's length: a per-block leaf
+        (adam8's scales) shards in step with the params it covers."""
+        if self.group is None:
+            return full
+        size = full.shape[0] // self.num_shards
+        return full[self.rank * size:(self.rank + 1) * size].clone()
+
+    def _gather(self, leaf: torch.Tensor) -> torch.Tensor:
+        """The global value of a state leaf: a 1-D leaf's shards in rank
+        order, a 0-d leaf as it is (collective under a group)."""
+        if self.group is None or leaf.dim() == 0:
+            return leaf
+        return all_gather(leaf, self.group).reshape(-1)
 
     def unravel(self, flat: torch.Tensor) -> PyTree:
         """The template's tree of views into ``flat[:num_keys]``."""
@@ -163,36 +205,45 @@ class DenseTable:
 
     # ------------------------------------------------------------------ pull
     def pull(self) -> PyTree:
-        """The full parameter tree."""
-        return self.unravel(self.params)
+        """The full parameter tree (an all-gather of the shards; every
+        rank calls it)."""
+        return self.unravel(self._gather(self.params))
 
     def pull_keys(self, keys) -> torch.Tensor:
-        """Sparse read of a dense table (emulation/API-parity path)."""
-        return self.params[torch.as_tensor(keys, device=self.device).long()]
+        """Sparse read of a dense table (emulation/API-parity path); keys
+        index the global vector."""
+        return self._gather(self.params)[
+            torch.as_tensor(keys, device=self.device).long()]
 
     # ------------------------------------------------------------------ push
     def push(self, grads: PyTree) -> None:
-        """Apply a full-tree gradient through the server-side updater."""
+        """Apply a full-tree gradient through the server-side updater. The
+        caller passes the already-reduced gradient, the same on every
+        rank; each rank applies its own range of it."""
         gflat, _ = ravel(grads, self.device)
-        self._apply(self._pad(gflat))
+        self._apply(self._shard(self._pad(gflat)))
 
     def push_keys(self, keys, vals) -> None:
         """Sparse additive push: only the pushed keys' parameters and
         elementwise optimizer state move; scalar state (adam's count)
-        still advances once per push."""
+        still advances once per push. Keys index the global vector; every
+        rank is handed the same keys and applies those in its range."""
         keys = torch.as_tensor(keys, device=self.device).long()
         vals = torch.as_tensor(vals, device=self.device,
                                dtype=self.params.dtype)
+        if self.group is not None:
+            own = (keys >= self._lo) & (keys < self._lo + self.params.shape[0])
+            keys, vals = keys[own] - self._lo, vals[own]
         flat = torch.zeros_like(self.params).index_add_(0, keys, vals)
         mask = torch.zeros_like(self.params).index_fill_(0, keys, 1.0)
         self._apply(flat, mask)
 
     def _clip(self, g: torch.Tensor) -> torch.Tensor:
-        """Global-norm clip over the whole gradient (a no-op without
-        ``clip_norm``)."""
+        """Global-norm clip over the whole gradient, its sum of squares
+        summed over the shards (a no-op without ``clip_norm``)."""
         if not self._clip_norm:
             return g
-        sumsq = torch.sum(g * g)
+        sumsq = all_reduce_sum(torch.sum(g * g), self.group)
         return g * torch.clamp(self._clip_norm * torch.rsqrt(
             torch.clamp(sumsq, min=1e-16)), max=1.0)
 
@@ -219,10 +270,23 @@ class DenseTable:
         """Pull, gradient, push and update in one call — the port of the
         JAX package's ``DenseTable.make_step``.
 
-        ``grad_fn(params_tree, batch) -> (loss, grads_tree)``; the returned
-        ``step(params, opt_state, batch) -> (params, opt_state, loss)``
-        reads the padded flat params it is handed and returns new ones
-        (``step_inplace`` runs it against the table's own state).
+        ``grad_fn(params_tree, batch) -> (loss, grads_tree)`` runs on this
+        rank's batch shard; the returned ``step(params, opt_state, batch)
+        -> (params, opt_state, loss)`` reads this rank's shard of the
+        padded flat params and returns new ones (``step_inplace`` runs it
+        against the table's own state). Every rank of the group calls it
+        with its own batch shard. In order: the pull (``comm``'s
+        all-gather of the shards), the gradient, the push (``comm``'s
+        reduce-scatter to the owner shards, divided by the world size
+        under ``grad_reduce="mean"``), the global-norm clip and the
+        updater on the shard; the loss returned is the mean over the
+        ranks.
+
+        ``comm`` is the wire format of both collectives: ``"float32"``,
+        ``"bfloat16"`` or ``"int8"`` (``ops/quantized_comm.py``). Params
+        and the update stay float32. Under ``group=None`` the codec still
+        runs (the pulled params and the pushed gradient go through it), as
+        on a one-device JAX mesh.
 
         ``compute_dtype`` (e.g. ``torch.bfloat16``) casts the params and the
         batch's floating leaves down before ``grad_fn`` and the gradients
@@ -232,21 +296,16 @@ class DenseTable:
         gradients in float32 (averaged under ``grad_reduce="mean"``,
         summed under ``"sum"``) before one update.
 
-        One device: the pull is a read and the push the updater on the one
-        shard, divided by the world size of 1 under ``"mean"``. ``comm``
-        other than ``"float32"`` (the quantized collectives) is not ported
-        (ROADMAP.md queue 1 item 10). The JAX function's ``batch_spec`` and
-        ``jit`` have no counterpart: the batch lies whole on the one device
-        and PyTorch runs eagerly.
+        The JAX function's ``batch_spec`` and ``jit`` have no
+        counterpart: each rank is handed its own batch shard, and PyTorch
+        runs eagerly.
         """
-        if comm != "float32":
-            raise NotImplementedError(
-                f"comm={comm!r} is not ported yet (ROADMAP.md queue 1 item "
-                "10: the quantized collectives); use comm='float32'")
+        _check(comm)
         if accum < 1:
             raise ValueError(f"accum must be >= 1, got {accum}")
-        n, padded, world = self.num_keys, self.padded, self.num_shards
+        n, padded, shards = self.num_keys, self.padded, self.num_shards
         unravel, tx, reduce = self._unravel, self.tx, self.grad_reduce
+        group = self.group
 
         if compute_dtype is not None:
             user_grad_fn = grad_fn
@@ -279,12 +338,16 @@ class DenseTable:
             return loss_sum / accum, gsum / accum
 
         def step(params, opt_state, batch):
-            loss, gflat = grads_flat(unravel(params[:n]), batch)   # pull
+            full = quantized_all_gather(params, group, comm)        # pull
+            loss, gflat = grads_flat(unravel(full[:n]), batch)
             g = torch.zeros(padded, dtype=gflat.dtype, device=gflat.device)
-            g[:n] = gflat                                           # push
+            g[:n] = gflat
+            g = quantized_psum_scatter(g, group, comm)              # push
             if reduce == "mean":
-                g = g / world
+                g = g / shards
             updates, opt_state = tx.update(self._clip(g), opt_state, params)
+            if group is not None:
+                loss = all_reduce_sum(loss.detach(), group) / shards
             return params + updates, opt_state, loss
 
         return step
@@ -297,17 +360,23 @@ class DenseTable:
 
     # ------------------------------------------------------------- state I/O
     def state_dict(self) -> dict:
-        """Host copies: ``params`` (padded flat) and ``opt_state`` (the
-        leaves in ``jax.tree.leaves`` order; bfloat16 leaves as their uint16
-        bit patterns)."""
-        return {"params": _host(self.params),
-                "opt_state": [_host(x) for x in self.opt_state]}
+        """Host copies of the global state, in the JAX package's layout:
+        ``params`` (padded flat) and ``opt_state`` (the leaves in
+        ``jax.tree.leaves`` order; bfloat16 leaves as their uint16 bit
+        patterns). Under a group the shards are gathered: every rank calls
+        it together and gets the whole state."""
+        return {"params": _host(self._gather(self.params)),
+                "opt_state": [_host(self._gather(x)) for x in self.opt_state]}
 
     def load_state_dict(self, state: dict) -> None:
+        """Load a global state (as :meth:`state_dict` returns it, or the
+        JAX table's); each rank keeps its shard. The padded size depends
+        on the shard count, so a state carries across group sizes only
+        where the padding agrees."""
         params = torch.tensor(np.asarray(state["params"]))
-        if tuple(params.shape) != tuple(self.params.shape):
+        if tuple(params.shape) != (self.padded,):
             raise ValueError(f"params shape {tuple(params.shape)} does not "
-                             f"match the table's {tuple(self.params.shape)}")
+                             f"match the table's {(self.padded,)}")
         new_leaves = list(state.get("opt_state", []))
         if len(new_leaves) != len(self.opt_state):
             raise ValueError(
@@ -317,10 +386,14 @@ class DenseTable:
         loaded = []
         for cur, new in zip(self.opt_state, new_leaves):
             shape = tuple(np.shape(new))
-            if shape != tuple(cur.shape):
+            want = tuple(cur.shape) if cur.dim() == 0 else \
+                (cur.shape[0] * self.num_shards,)
+            if shape != want:
                 raise ValueError(f"opt state leaf shape {shape} "
-                                 f"does not match {tuple(cur.shape)}")
-            loaded.append(_tensor_like(new, cur))
-        self.params = params.to(device=self.device, dtype=self.params.dtype)
+                                 f"does not match {want}")
+            loaded.append(self._shard(_tensor_like(new, cur))
+                          if cur.dim() else _tensor_like(new, cur))
+        self.params = self._shard(params.to(device=self.device,
+                                             dtype=self.params.dtype))
         self.opt_state = loaded
 

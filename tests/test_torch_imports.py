@@ -69,7 +69,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "        'minips_tpu_torch.data.text',\n"
         "        'minips_tpu_torch.data.criteo',\n"
         "        'minips_tpu_torch.data.native',\n"
-        "        'minips_tpu_torch.utils.native_lib'}\n"
+        "        'minips_tpu_torch.utils.native_lib',\n"
+        "        'minips_tpu_torch.ops.quantized_comm',\n"
+        "        'minips_tpu_torch.parallel.mesh',\n"
+        "        'minips_tpu_torch.parallel.partition'}\n"
         "print(len(names), sorted(need - set(names)), bad)\n")
     assert r.returncode == 0, r.stderr
     count, rest = r.stdout.split(" ", 1)
