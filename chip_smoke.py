@@ -12,8 +12,10 @@ at full width (B = 65536, 13 dense and 26 categorical fields, tables of
 2^18 rows), and the decoder LM's dense step of
 ``minips_tpu_torch/apps/lm.py`` at ``bench_lm``'s full width (8 blocks of
 width 2048, 32 heads of 64, vocab 2^14, B = 16, T = 1024, bf16 compute,
-Adam, flash attention, head chunks of 128). Phases, each of which raises
-on failure:
+Adam, flash attention, head chunks of 128, remat in mode ``"dots"``), and
+the rest of the LM family: every remat mode, ``apps/lm_example.py``,
+KV-cached decoding and the one-device MoE LM. Phases, each of which
+raises on failure:
 
 1. device: requires CUDA; prints the card's name and power limit;
 2. build: compiles every kernel, all sources at once, and times it;
@@ -42,13 +44,15 @@ on failure:
    bf16, causal and not, GQA, global offsets, ragged T, Tq and Tk not
    multiples of the bf16 kernels' 128-row tiles, causal keys that no query
    sees, D = 72, the full-width shape, q/k/v as the LM block's strided
-   views of its fused activation), the gradients through the autograd op
-   with a nonzero lse cotangent; keys that no query sees get dK = dV = 0
-   exactly, and two K4 launches agree to the bit;
-8. LM path: 10 steps at full width, with finite and falling loss, each
-   flash kernel launched once per block per step, step time, tokens/s and
-   the profiler's idle share; the first 3 steps of a small LM on the card
-   and on the CPU port from the same weights;
+   views of its fused activation, also at GQA kv_heads 8 and at head dim
+   128), the gradients through the autograd op with a nonzero lse
+   cotangent; keys that no query sees get dK = dV = 0 exactly, and two K4
+   launches agree to the bit;
+8. LM path: 10 steps at full width at remat ``"dots"``, with finite and
+   falling loss, K2 launched twice per block per step (the forward and
+   its recompute) and K3 and K4 once, step time, tokens/s and the
+   profiler's idle share; the first 3 steps of a small LM on the card and
+   on the CPU port from the same weights;
 9. timings: every kernel's time at its main path's shapes beside its plain
    version's, one PyTorch call's and the least time the card could take,
    with the kernel's design (``wgmma`` or ``simt-vec``); the row gather
@@ -119,7 +123,35 @@ on failure:
     flash kernel once per block per step, step time, tokens/s and peak
     memory (printed beside phase 8's float32 step), and a small LM's first
     3 losses through the group against the CPU port's with
-    ``group=None`` at the same ``comm``.
+    ``group=None`` at the same ``comm``;
+17. the remat spectrum: ``build_lm`` at full width at remat off, on,
+    ``"attn"``, ``"dots"``, ``"hybrid"`` and ``"hybrid_qkv"``, 10 steps
+    each: K2-K4 launches per step as the JAX package counts them, step
+    time, tokens/s and peak memory, the first 3 losses within 2e-3 of
+    remat off's, and a small LM's first 3 losses card against CPU (1e-2)
+    in each mode;
+18. ``apps/lm_example.py``'s ``run`` at width 2048, depth 8, T 1024, B 16,
+    flash, bf16, head chunks of 128, remat ``"dots"``, the app's vocab of
+    256, 20 iterations each: MHA (32 heads of 64), GQA (8 kv heads), RoPE,
+    head dim 128 (16 heads), and dropout 0.1 with adamw, 5 warm-up steps
+    and clipping at 1.0: finite and falling loss, launch counts, tokens/s
+    and peak memory; K2-K4 timed at the GQA and head-dim-128 shapes as in
+    phase 9, with K4's registers and spills at D 128; dropout's gradients
+    at ``"dots"`` equal to remat off's on one full-width batch with the
+    same key; a small ``--generate 16`` run on the card equal to the CPU
+    port's greedy tokens from the same weights;
+19. decoding: ``models/decode.py``'s ``generate`` on phase 8's trained LM
+    (B 8, a 512-token prompt, 256 new tokens, bf16 compute and cache):
+    prefill ms, ms per token, tokens/s, the cache's bytes (a GQA model's,
+    smaller by the group factor, beside it), the bound (bf16 weights plus
+    the live cache per step over the memory rate) and the idle share; on a
+    small model at f32, 16 greedy tokens equal to the argmax of
+    ``transformer.apply`` on the growing sequence;
+20. the MoE LM: ``init_moe_lm`` and ``apply_moe_dense`` at width 2048,
+    depth 8, 32 heads, 8 experts of hidden 256, B 4, T 1024, capacity
+    twice the even share, top-1 and top-2: finite forward and backward and
+    their time, the routes kept; a binding capacity drops routes; a small
+    MoE LM's logits and aux against the CPU port's within 1e-3.
 
 The last two lines are a JSON object with every kernel's numbers (its
 launches on each path beside them) and then ``{"ok": true, "device":
@@ -153,6 +185,8 @@ LOSS_TOL = 5e-3
 TIMED_LAUNCHES = 30  # per kernel timing; the median is reported
 SLEEP_CYCLES = 200_000_000  # ~0.1 s at H100 clocks: covers queueing them
 PROFILED_STEPS = 3
+# the LM at bench_lm's full width: B sequences of T tokens, 8 blocks of 2048
+LM_B, LM_T, LM_DIM, LM_DEPTH = 16, 1024, 2048, 8
 LM_CHAIN = 10
 LM_REPS = 3
 LM_PROFILED_STEPS = 2
@@ -237,6 +271,37 @@ GROUP_COMMS = ("bfloat16", "int8")
 # sides (the first pull's codes are the same bits), the rest is the small
 # LM check's bf16 arithmetic, whose bound this keeps
 COMM_LM_LOSS_TOL = LM_LOSS_TOL
+# phase 17: every remat mode of the full-width LM, 10 steps each
+REMAT_MODES = (False, True, "attn", "dots", "hybrid", "hybrid_qkv")
+REMAT_STEPS = 10
+# |loss(mode) - loss(remat off)| over the first 3 steps on the card: the
+# same kernels on the same inputs, recomputed rather than saved
+REMAT_LOSS_TOL = 2e-3
+# phase 18: apps/lm_example.py's run at full width, 20 iterations a
+# configuration; lr 1e-3 is bench_lm's at this width (the app's default
+# 3e-3 is sized for its dim-64 default model)
+APP_LM_ITERS = 20
+APP_LM_LR = 1e-3
+APP_LM_FLAGS = dict(dim=2048, depth=8, heads=32, seq_len=1024,
+                    attn="flash", dtype="bfloat16", head_chunk=128,
+                    remat=True, remat_mode="dots")
+APP_LM_CONFIGS = {
+    "mha": {}, "gqa_kv8": dict(kv_heads=8), "rope": dict(rope=True),
+    "hd128": dict(heads=16),
+    "dropout_adamw": dict(dropout=0.1, warmup_steps=5, clip_norm=1.0)}
+# dropout under remat: the gradients at "dots" against remat off with the
+# same key: the same masks and kernels, bit-identical expected; the bound
+# is one bf16 rounding step of the largest gradient
+DROPOUT_REMAT_TOL = 2.0 ** -8
+APP_GEN_TOKENS = 16
+# phase 19: decoding phase 8's trained LM, bf16 compute and cache
+DEC_B, DEC_PROMPT, DEC_NEW = 8, 512, 256
+DEC_PROFILED = 32  # new tokens of the profiled decode run
+DEC_GQA_KV = 8
+DEC_ORACLE_STEPS = 16
+# phase 20: the MoE LM at init_moe_lm's and lm_example --experts' defaults
+MOE_B, MOE_EXPERTS, MOE_HIDDEN, MOE_REPS = 4, 8, 256, 3
+MOE_SMALL_TOL = 1e-3
 
 
 def check(cond: bool, msg: str) -> None:
@@ -505,6 +570,92 @@ def attention_work(B, Tq, Tk, H, Hk, D, q_off, k_off, causal, item):
         "flash_bwd_dkv": 2 * qb + 4 * kb + 2 * rows}         # lse, dvec; out
 
 
+FLASH_REPLACES = {"flash_forward": "minips_tpu/ops/flash_attention.py:190",
+                  "flash_bwd_dq": "minips_tpu/ops/flash_attention.py:297",
+                  "flash_bwd_dkv": "minips_tpu/ops/flash_attention.py:332"}
+
+
+def flash_timings(torch, tfa, B, T, H, Hk, D, mem_bw) -> dict:
+    """K2, K3 and K4 timed at one bf16 causal shape, q/k/v as the LM
+    block's views of its fused activation (``lm_views``): each kernel's
+    time, its plain version's, the library yardstick's (SDPA's forward for
+    K2, its backward, dQ dK dV together, for K3 and K4, shared between
+    them in proportion to the work) and the bound (bytes over the memory
+    rate, or the live pairs' flops over the dense bf16 rate)."""
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(1)
+
+    def make(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(
+            torch.bfloat16)
+
+    q, k, v = lm_views(make, B, T, H, Hk, D)
+    g_out = make(B, T, H, D)
+    kw = dict(causal=True, scale=D ** -0.5)
+    out, lse = tfa.flash_forward(q, k, v, **kw)
+    dvec = (g_out.float() * out.float()).sum(-1).transpose(1, 2)[..., None]
+    sq, sk, sv = (x.transpose(1, 2).contiguous().requires_grad_(True)
+                  for x in (q, k, v))
+    gqa = {"enable_gqa": True} if Hk != H else {}
+
+    def sdpa():
+        return torch.nn.functional.scaled_dot_product_attention(
+            sq, sk, sv, is_causal=True, **gqa)
+
+    s_out = sdpa()
+    s_g = g_out.transpose(1, 2).contiguous()
+    pairs, nbytes = attention_work(B, T, T, H, Hk, D, 0, 0, True, 2)
+    flops = {"flash_forward": 4 * D * pairs, "flash_bwd_dq": 6 * D * pairs,
+             "flash_bwd_dkv": 8 * D * pairs}
+    runs = {
+        "flash_forward": (lambda: tfa.flash_forward(q, k, v, **kw),
+                          lambda: tfa.flash_forward_reference(q, k, v, **kw),
+                          sdpa),
+        "flash_bwd_dq": (lambda: tfa.flash_bwd_dq(q, k, v, g_out, lse, dvec,
+                                                  **kw),
+                         lambda: tfa.flash_bwd_dq_reference(
+                             q, k, v, g_out, lse, dvec, **kw),
+                         lambda: torch.autograd.grad(
+                             s_out, (sq, sk, sv), s_g, retain_graph=True)),
+        "flash_bwd_dkv": (lambda: tfa.flash_bwd_dkv(q, k, v, g_out, lse,
+                                                    dvec, **kw),
+                          lambda: tfa.flash_bwd_dkv_reference(
+                              q, k, v, g_out, lse, dvec, **kw),
+                          None),
+    }
+    # SDPA's backward computes dQ, dK and dV in one call; K3's share of it
+    # is in proportion to the work, 6 D against K4's 8 D per pair
+    share = {"flash_forward": 1.0, "flash_bwd_dq": 6 / 14,
+             "flash_bwd_dkv": 8 / 14}
+    rows, sdpa_bwd_ms = {}, None
+    for name, (kernel_fn, plain_fn, lib_fn) in runs.items():
+        ms = time_ms(torch, kernel_fn)
+        plain = time_ms(torch, plain_fn)
+        if lib_fn is not None:
+            lib = time_ms(torch, lib_fn)
+            if name == "flash_bwd_dq":
+                sdpa_bwd_ms = lib
+        else:
+            lib = sdpa_bwd_ms
+        t_bytes = 1e3 * nbytes[name] / mem_bw
+        t_ops = 1e3 * flops[name] / BF16_FLOPS
+        rows[name] = {
+            "ms": ms, "plain_ms": plain, "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": lib,
+            "tflops": flops[name] / ms / 1e9,
+            "library_share_ms": lib * share[name],
+            "library_call": ("scaled_dot_product_attention(is_causal=True"
+                             + (", enable_gqa=True" if gqa else "") + ") "
+                             + ("forward" if name == "flash_forward" else
+                                "backward, dQ dK dV together")),
+            "shape": {"B": B, "T": T, "H": H, "Hk": Hk, "D": D,
+                      "dtype": "bfloat16", "causal": True,
+                      "live_pairs": pairs, "flops": flops[name],
+                      "bytes": nbytes[name]}}
+    return rows
+
+
 def update_peak_gb(torch, table) -> float:
     """Device memory that one optimizer update of the whole table takes
     above what was allocated before it: the update alone, outside the
@@ -560,6 +711,35 @@ def run_pair_steps(pair, steps):
 def run_lm_steps(model, steps):
     return [model.table.step_inplace(model.step, model.batches[i % 2])
             for i in range(steps)]
+
+
+def grad_peak_gb(torch, lm) -> float:
+    """Device memory that one forward and backward of the LM step's
+    ``grad_fn`` takes above what was allocated before it, on the step's
+    bf16 copy of the params and one batch: what the remat mode keeps for
+    the backward, its recompute's transients and the gradients, without
+    the update (which sets the whole step's peak in every mode but remat
+    off)."""
+    from minips_tpu_torch.tables.dense import cast_floating
+
+    params = cast_floating(lm.table.pull(), torch.bfloat16)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = lm.grad_fn(params, lm.batches[0])
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    del out, params
+    return peak / 1e9
+
+def want_launches(remat, depth: int, steps: int) -> dict:
+    """K2, K3 and K4 launches in ``steps`` training steps of ``depth``
+    blocks under a remat mode (``FLASH_LAUNCHES_PER_BLOCK``: the JAX
+    package's count, K2 once more under any remat)."""
+    from minips_tpu_torch.models.transformer import FLASH_LAUNCHES_PER_BLOCK
+
+    return {name: n * depth * steps
+            for name, n in FLASH_LAUNCHES_PER_BLOCK[remat].items()}
 
 
 def state_bits(state) -> list:
@@ -704,10 +884,9 @@ def group_phases(group, dev, cfg) -> dict:
         check(all(math.isfinite(x) for x in losses)
               and losses[-1] < losses[0],
               f"LM at comm {comm}: losses {losses}")
-        want = cfg["lm_depth"] * cfg["lm_chain"]
-        check(all(v == want for v in launches.values()),
-              f"LM at comm {comm}: flash launches {launches}, expected "
-              f"{want} each")
+        want = want_launches(lm.remat, cfg["lm_depth"], cfg["lm_chain"])
+        check(launches == want, f"LM at comm {comm}: flash launches "
+              f"{launches}, expected {want}")
         chains = [chain_seconds(torch, lambda: run_lm_steps(
             lm, cfg["lm_chain"])) for _ in range(cfg["lm_reps"])]
         med = statistics.median(chains)
@@ -742,6 +921,349 @@ def group_phases(group, dev, cfg) -> dict:
               + json.dumps(out["lm"][comm]), flush=True)
         del card_lm, cpu_lm
     return out
+
+
+def decode_phase(torch, dev, card, lm, mem_bw) -> dict:
+    """Phase 19: ``decode.generate`` on the trained full-width LM (B =
+    DEC_B, a DEC_PROMPT-token prompt of its batch, DEC_NEW new tokens, bf16
+    compute and cache), and on a GQA model of the same width (random
+    weights) for its cache; the bound is the bf16 weights plus the live
+    cache per step over the memory rate; then greedy decoding on a small
+    model at f32 against the argmax of ``transformer.apply`` on the growing
+    sequence."""
+    from minips_tpu_torch.models import decode as tdec
+    from minips_tpu_torch.models import transformer as tfm
+
+    trained = lm.table.pull()
+    heads = lm.heads
+    prompt = lm.batches[0]["tokens"][:DEC_B, :DEC_PROMPT]
+
+    def cache_bytes(params):
+        return sum(t.numel() * t.element_size()
+                   for c in tdec.init_cache(params, DEC_B,
+                                            DEC_PROMPT + DEC_NEW,
+                                            heads=heads)
+                   for t in c.values())
+
+    def run(params, steps):
+        return tdec.generate(params, prompt, steps, heads=heads)
+
+    out = {"card": card, "batch": DEC_B, "prompt": DEC_PROMPT,
+           "new_tokens": DEC_NEW, "compute": "bfloat16",
+           "cache": "bfloat16"}
+    run(trained, 4)  # warm-up
+    prefill_s = statistics.median(
+        chain_seconds(torch, lambda: run(trained, 1)) for _ in range(3))
+    toks = []
+    total_s = chain_seconds(torch, lambda: toks.append(run(trained, DEC_NEW)))
+    toks = toks[0]
+    check(tuple(toks.shape) == (DEC_B, DEC_NEW) and int(toks.min()) >= 0
+          and int(toks.max()) < trained["tok_emb"].shape[0],
+          f"decode: tokens of shape {tuple(toks.shape)} out of range")
+    blocks = trained["blocks"]
+    w_bytes = 2 * (sum(blk[k].numel() for blk in blocks
+                       for k in ("qkv", "proj", "mlp_in", "mlp_out"))
+                   + trained["tok_emb"].numel())
+    hd = LM_DIM // heads
+    live = [2 * 2 * DEC_B * (DEC_PROMPT + i + 1) * heads * hd * len(blocks)
+            for i in range(DEC_NEW - 1)]
+    bound_ms = 1e3 * (w_bytes + sum(live) / len(live)) / mem_bw
+    step_ms = 1e3 * (total_s - prefill_s) / (DEC_NEW - 1)
+    out.update({
+        "prefill_ms": 1e3 * prefill_s, "ms_per_token": step_ms,
+        "tokens_per_s": DEC_B * DEC_NEW / total_s, "total_ms": 1e3 * total_s,
+        "cache_bytes": cache_bytes(trained),
+        "bound_ms_per_token": bound_ms, "bound_bytes": {
+            "bf16_weights": w_bytes, "live_cache_mean": sum(live) / len(live)},
+        # the idle share over a shorter run: the profiler records every
+        # one of the decode's ~100 K small kernels
+        "device": {"new_tokens": DEC_PROFILED, **device_time(
+            torch, lambda: run(trained, DEC_PROFILED), 1,
+            1e3 * chain_seconds(torch, lambda: run(trained, DEC_PROFILED)))}})
+    gen = torch.Generator(device=dev).manual_seed(5)
+    gqa = tfm.init(gen, vocab=trained["tok_emb"].shape[0], dim=LM_DIM,
+                   heads=heads, depth=len(blocks), max_len=LM_T,
+                   kv_heads=DEC_GQA_KV, device=dev)
+    out["gqa_cache_bytes"] = cache_bytes(gqa)
+    check(out["cache_bytes"] == out["gqa_cache_bytes"] * heads // DEC_GQA_KV,
+          f"GQA cache {out['gqa_cache_bytes']} is not the MHA cache "
+          f"{out['cache_bytes']} over {heads // DEC_GQA_KV}")
+    run(gqa, 4)
+    gqa_s = chain_seconds(torch, lambda: run(gqa, DEC_NEW))
+    out["gqa_tokens_per_s"] = DEC_B * DEC_NEW / gqa_s
+    del gqa, trained
+
+    small = tfm.init(torch.Generator(device=dev).manual_seed(6), vocab=1024,
+                     dim=256, heads=4, depth=2, max_len=64, device=dev)
+    seq = torch.randint(0, 1024, (2, 8), device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(7))
+    got = tdec.generate(small, seq, DEC_ORACLE_STEPS, heads=4,
+                        compute_dtype=torch.float32,
+                        cache_dtype=torch.float32)
+    for i in range(DEC_ORACLE_STEPS):
+        with torch.no_grad():
+            logits = tfm.apply(small, seq, heads=4,
+                               compute_dtype=torch.float32)
+        tok = torch.argmax(logits[:, -1], dim=-1)
+        check(torch.equal(tok, got[:, i]), f"greedy decode step {i} "
+              "differs from the argmax of apply on the growing sequence")
+        seq = torch.cat([seq, tok[:, None]], dim=1)
+    out["oracle"] = {"steps": DEC_ORACLE_STEPS, "equal": True,
+                     "model": "dim 256, depth 2, 4 heads, vocab 1024, f32"}
+    return out
+
+
+def remat_phase(torch, dev, card, tfa) -> dict:
+    """Phase 17: ``build_lm`` at full width under every remat mode,
+    REMAT_STEPS steps each: launches, step time, tokens/s and peak memory;
+    the first 3 losses against remat off's on the card, and a small LM's
+    card against the CPU port's. Returns each mode's launches."""
+    from minips_tpu_torch import interop
+    from minips_tpu_torch.apps.lm import build_lm
+
+    flash = ("flash_forward", "flash_bwd_dq", "flash_bwd_dkv")
+    paths, rows, base = {}, {}, None
+    for mode in REMAT_MODES:
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        lm = build_lm(LM_B, LM_T, dim=LM_DIM, depth=LM_DEPTH, device=dev,
+                      seed=0, remat=mode)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for name in flash:
+            getattr(tfa, name).launches = 0
+        losses = [float(x) for x in run_lm_steps(lm, REMAT_STEPS)]
+        torch.cuda.synchronize()
+        launches = {name: getattr(tfa, name).launches for name in flash}
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        want = want_launches(mode, LM_DEPTH, REMAT_STEPS)
+        check(launches == want, f"remat {mode!r}: flash launches "
+              f"{launches}, expected {want}")
+        check(all(math.isfinite(x) for x in losses)
+              and losses[-1] < losses[0], f"remat {mode!r}: losses {losses}")
+        base = losses if base is None else base
+        diff = max(abs(a - b) for a, b in zip(losses[:3], base[:3]))
+        check(diff <= REMAT_LOSS_TOL, f"remat {mode!r}: first losses "
+              f"{losses[:3]} differ from remat off's {base[:3]} by {diff}")
+        chain = chain_seconds(torch, lambda: run_lm_steps(lm, REMAT_STEPS))
+        paths[str(mode)] = launches
+        rows[str(mode)] = {
+            "card": card, "remat": mode, "steps": REMAT_STEPS,
+            "step_ms": 1e3 * chain / REMAT_STEPS,
+            "tokens_per_s": LM_B * LM_T * REMAT_STEPS / chain,
+            "peak_mem_gb": peak, "grad_peak_gb": grad_peak_gb(torch, lm),
+            "launches_per_step": {n: v / REMAT_STEPS
+                                  for n, v in launches.items()},
+            "first_losses": losses[:3], "max_abs_diff_vs_off": diff}
+        print(f"remat {mode!r} at full width: " + json.dumps(rows[str(mode)]),
+              flush=True)
+        del lm
+    small = dict(dim=256, depth=2, vocab=1024, seed=0)
+    for mode in REMAT_MODES:
+        card_lm = build_lm(2, 256, device=dev, remat=mode, **small)
+        state = interop.dense_to_numpy(card_lm.table)
+        card_l = [float(x) for x in run_lm_steps(card_lm, CPU_STEPS)]
+        cpu_lm = build_lm(2, 256, device="cpu", remat=mode, **small)
+        interop.load_dense(cpu_lm.table, *state)
+        cpu_l = [float(x) for x in run_lm_steps(cpu_lm, CPU_STEPS)]
+        diff = max(abs(a - b) for a, b in zip(card_l, cpu_l))
+        check(diff <= LM_LOSS_TOL, f"small LM at remat {mode!r}: card "
+              f"{card_l} and CPU {cpu_l} differ by {diff}")
+        rows[str(mode)]["small_lm_card_vs_cpu"] = diff
+        del card_lm, cpu_lm
+    print("remat spectrum (phase 17), by mode [step peak GB, forward and "
+          "backward's own GB, step ms, small LM card vs CPU]: "
+          + json.dumps({m: [r["peak_mem_gb"], r["grad_peak_gb"],
+                            r["step_ms"], r.get("small_lm_card_vs_cpu")]
+                        for m, r in rows.items()}), flush=True)
+    return paths
+
+
+def lm_example_phase(torch, dev, card, tfa, mem_bw, ptxas_by_kernel):
+    """Phase 18: ``apps/lm_example.py``'s ``run`` at full width in each of
+    APP_LM_CONFIGS (finite and falling loss, launches, tokens/s, peak
+    memory); K2-K4 timed at the GQA and D = 128 shapes with K4's registers
+    and spills at D = 128; dropout's gradients at "dots" against remat
+    off; a small ``--generate`` run on the card against the CPU port's
+    decoding from the same weights. Returns (each configuration's
+    launches, each kernel's timed shapes)."""
+    import argparse
+
+    from minips_tpu_torch.apps import lm_example as lmx
+    from minips_tpu_torch.core import config as tcfg
+    from minips_tpu_torch.models import decode as tdec
+    from minips_tpu_torch.models import transformer as tfm
+    from minips_tpu_torch.utils.metrics import MetricsLogger
+    from minips_tpu_torch.utils.tree import tree_leaves, tree_map
+
+    flash = ("flash_forward", "flash_bwd_dq", "flash_bwd_dkv")
+
+    def app_run(iters, updater="adam", **flags):
+        cfg = tcfg.Config(
+            table=tcfg.TableConfig(name="lm", kind="dense", updater=updater,
+                                   lr=APP_LM_LR),
+            train=tcfg.TrainConfig(batch_size=LM_B, num_iters=iters,
+                                   log_every=0, seed=0))
+        return cfg, lmx.run(cfg, argparse.Namespace(device=dev, **flags),
+                            MetricsLogger(None, verbose=False))
+
+    paths = {}
+    for name, extra in APP_LM_CONFIGS.items():
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        for k in flash:
+            getattr(tfa, k).launches = 0
+        updater = "adamw" if extra.get("dropout") else "adam"
+        _, out = app_run(APP_LM_ITERS, updater, **{**APP_LM_FLAGS, **extra})
+        torch.cuda.synchronize()
+        launches = {k: getattr(tfa, k).launches for k in flash}
+        losses = out["losses"]
+        want = want_launches("dots", LM_DEPTH, APP_LM_ITERS)
+        check(launches == want, f"lm_example {name}: flash launches "
+              f"{launches}, expected {want}")
+        # falling: the mean of the last quarter of the run below the first
+        # quarter's (each step draws another batch of the stream)
+        w = max(1, APP_LM_ITERS // 4)
+        check(len(losses) == APP_LM_ITERS
+              and all(math.isfinite(x) for x in losses)
+              and sum(losses[-w:]) < sum(losses[:w]),
+              f"lm_example {name}: losses {losses}")
+        paths[name] = launches
+        print(f"lm_example {name} at full width: " + json.dumps({
+            "card": card, "flags": {**APP_LM_FLAGS, **extra},
+            "updater": updater, "lr": APP_LM_LR, "iters": APP_LM_ITERS,
+            "tokens_per_s": out["samples_per_sec"] * LM_T,
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "params": out["table"].num_keys, "launches": launches,
+            "loss_first_last": [losses[0], losses[-1]]}), flush=True)
+        del out
+
+    shapes = {k: [] for k in flash}
+    for label, H, Hk, D in (("gqa_kv8", 32, 8, 64), ("hd128", 16, 16, 128)):
+        for k, row in flash_timings(torch, tfa, LM_B, LM_T, H, Hk, D,
+                                    mem_bw).items():
+            row = {"config": label, "card": card, **row}
+            if k == "flash_bwd_dkv" and D == 128:
+                row["ptxas"] = ptxas_by_kernel.get(
+                    "flash_bwd_dkv_wgmma_kernel<bf16,128>",
+                    "not measured (the library was cached)")
+            shapes[k].append(row)
+            print(f"{k} at the {label} shape: " + json.dumps(row),
+                  flush=True)
+
+    # dropout under remat: the gradients at "dots" against remat off on one
+    # full-width batch with the same key
+    gen = torch.Generator(device=dev).manual_seed(3)
+    params = tfm.init(gen, vocab=256, dim=LM_DIM, heads=32, depth=LM_DEPTH,
+                      max_len=LM_T, device=dev)
+    batch = {"tokens": torch.randint(0, 256, (LM_B, LM_T + 1), device=dev,
+                                     generator=gen),
+             "rng": torch.tensor([tfm.fold_in(tfm.prng_key(71), 0)])}
+    kw = dict(heads=32, attn_impl="flash", head_chunk=128, dropout=0.1)
+    l_off, g_off = tfm.grad_fn(params, batch, remat=False, **kw)
+    l_dots, g_dots = tfm.grad_fn(params, batch, remat="dots", **kw)
+    pairs = list(zip(tree_leaves(g_off), tree_leaves(g_dots)))
+    err = max(float((b - a).abs().max()) for a, b in pairs)
+    top = max(float(a.abs().max()) for a, _ in pairs)
+    check(math.isfinite(float(l_off)) and err <= DROPOUT_REMAT_TOL * top,
+          f"dropout under remat: gradients at dots differ from remat off "
+          f"by {err} (largest {top})")
+    print("dropout 0.1 under remat, full width, one batch: " + json.dumps({
+        "card": card, "loss_off": float(l_off), "loss_dots": float(l_dots),
+        "max_abs_grad_diff": err, "max_abs_grad": top,
+        "bit_identical": all(torch.equal(a, b) for a, b in pairs)}),
+        flush=True)
+    del params, g_off, g_dots, pairs
+
+    # a small --generate run on the card, at the app's defaults (f32), and
+    # the CPU port's greedy decoding from the trained weights
+    cfg, out = app_run(5, generate=APP_GEN_TOKENS)
+    seq_len = 128
+    prompt = torch.as_tensor(lmx._load_data(
+        cfg, argparse.Namespace(), seq_len)["tokens"][:1, :8]).long()
+    cpu_params = tree_map(lambda x: x.cpu(), out["table"].pull())
+    cpu_toks = tdec.generate(cpu_params, prompt, APP_GEN_TOKENS,
+                             heads=lmx.MODEL["heads"],
+                             compute_dtype=torch.float32,
+                             cache_dtype=torch.float32)[0].tolist()
+    check(cpu_toks == out["generated"], f"--generate: card tokens "
+          f"{out['generated']} differ from the CPU port's {cpu_toks}")
+    print(f"lm_example --generate {APP_GEN_TOKENS} (card, f32) equals the "
+          f"CPU port's greedy tokens from the same weights: "
+          f"{out['generated']}", flush=True)
+    return paths, shapes
+
+
+def moe_phase(torch, dev, card) -> None:
+    """Phase 20: ``init_moe_lm`` and ``apply_moe_dense`` at full width
+    (k_top 1 and 2, capacity twice the even share): finite forward and
+    backward, their time, the tokens dropped; a binding capacity drops
+    tokens; a small MoE LM's logits and aux against the CPU port's."""
+    from minips_tpu_torch.models import transformer as tfm
+    from minips_tpu_torch.parallel import moe as tmoe
+    from minips_tpu_torch.utils.tree import tree_leaves, tree_map
+    from minips_tpu_torch.utils.tree import value_and_grad
+
+    gen = torch.Generator(device=dev).manual_seed(8)
+    params = tfm.init_moe_lm(gen, dim=LM_DIM, heads=LM_DIM // 64,
+                             depth=LM_DEPTH, num_experts=MOE_EXPERTS,
+                             expert_hidden=MOE_HIDDEN, device=dev)
+    vocab = params["tok_emb"].shape[0]
+    toks = torch.randint(0, vocab, (MOE_B, LM_T + 1), device=dev,
+                         generator=gen)
+    n = MOE_B * LM_T
+    x = torch.randn((n, LM_DIM), device=dev, generator=gen)
+    router = params["blocks"][0]["moe"]["router"]
+    rows = {}
+    for k_top in (1, 2):
+        cap = 2 * k_top * n // MOE_EXPERTS
+
+        def loss(p):
+            logits, aux = tfm.apply_moe_dense(p, toks[:, :-1],
+                                              heads=LM_DIM // 64,
+                                              capacity=cap, k_top=k_top)
+            return tfm.nll(logits, toks[:, 1:]) + 0.01 * aux
+
+        val, grads = value_and_grad(loss, params)
+        check(math.isfinite(float(val)) and all(
+            bool(torch.isfinite(g).all()) for g in tree_leaves(grads)),
+            f"MoE LM k_top {k_top}: non-finite loss or gradient")
+        secs = statistics.median(chain_seconds(
+            torch, lambda: value_and_grad(loss, params))
+            for _ in range(MOE_REPS))
+        kept = {}
+        for label, c in (("capacity_2x", cap), ("binding", cap // 8)):
+            disp = tmoe._dispatch_combine(x, router, MOE_EXPERTS, c,
+                                          k_top)[0]
+            kept[label] = int(disp.sum())
+        check(kept["binding"] < k_top * n, f"MoE k_top {k_top}: capacity "
+              f"{cap // 8} binds but kept all {k_top * n} routes")
+        rows[k_top] = {"card": card, "capacity": cap, "loss": float(val),
+                       "fwd_bwd_ms": 1e3 * secs,
+                       "routes": k_top * n, "kept_routes": kept}
+        del grads
+    small = tfm.init_moe_lm(torch.Generator(device=dev).manual_seed(9),
+                            dim=64, heads=4, depth=2, max_len=64,
+                            num_experts=4, expert_hidden=32, device=dev)
+    small_cpu = tree_map(lambda t: t.cpu(), small)
+    stoks = torch.randint(0, 256, (2, 64), device=dev,
+                          generator=torch.Generator(device=dev).manual_seed(
+                              10))
+    for k_top, cap in ((1, 64), (2, 16)):
+        kw = dict(heads=4, capacity=cap, k_top=k_top,
+                  compute_dtype=torch.float32)
+        with torch.no_grad():
+            lg, aux = tfm.apply_moe_dense(small, stoks, **kw)
+            lg_c, aux_c = tfm.apply_moe_dense(small_cpu, stoks.cpu(), **kw)
+        diff = max(float((lg.cpu() - lg_c).abs().max()),
+                   abs(float(aux) - float(aux_c)))
+        check(diff <= MOE_SMALL_TOL, f"small MoE LM k_top {k_top}: card "
+              f"and CPU differ by {diff}")
+        rows[k_top][f"small_card_vs_cpu_cap{cap}"] = diff
+    print(f"MoE LM (phase 20), B {MOE_B} T {LM_T} dim {LM_DIM} depth "
+          f"{LM_DEPTH}, {MOE_EXPERTS} experts of {MOE_HIDDEN}, bf16: "
+          + json.dumps(rows), flush=True)
 
 
 def main() -> int:
@@ -791,9 +1313,12 @@ def main() -> int:
     build_s = time.perf_counter() - t0
     print(f"build: {build_s:.2f} s for {sorted(logs) or 'cached'}",
           flush=True)
+    ptxas_by_kernel = {}
     for name, log in logs.items():
         for kernel, line in ptxas_lines(log):
             print(f"  ptxas {name} {kernel}: {line}")
+            if kernel != "ptxas":
+                ptxas_by_kernel.setdefault(kernel, []).append(line)
     if "flash_attn" in logs:
         spill_check(logs["flash_attn"])
     hgmma = tensor_core_check(_build)
@@ -1051,12 +1576,15 @@ def main() -> int:
                 record(*flash_errors(torch, tfa, case, dtype, causal,
                                      n_cases))
                 n_cases += 1
-    LM_B, LM_T, LM_DIM, LM_DEPTH = 16, 1024, 2048, 8
     full = (LM_B, LM_T, LM_T, LM_DIM // 64, LM_DIM // 64, 64, 0, 0)
     record(*flash_errors(torch, tfa, full, torch.bfloat16, True, n_cases))
     # q/k/v as the LM block's views of its fused activation, read through
     # the bf16 kernels' tensor maps at the activation's strides
-    view_cases = (full, (1, 192, 192, 8, 2, 64, 0, 0))
+    view_cases = (full, (1, 192, 192, 8, 2, 64, 0, 0),
+                  # the LM at GQA kv_heads 8 and at head dim 128
+                  (LM_B, LM_T, LM_T, LM_DIM // 64, 8, 64, 0, 0),
+                  (LM_B, LM_T, LM_T, LM_DIM // 128, LM_DIM // 128, 128,
+                   0, 0))
     for i, case in enumerate(view_cases):
         record(*flash_errors(torch, tfa, case, torch.bfloat16, True,
                              n_cases + 1 + i, views=True))
@@ -1089,12 +1617,13 @@ def main() -> int:
           f"non-finite LM loss: {lm_losses}")
     check(lm_losses[-1] < lm_losses[0],
           f"LM loss did not fall: {lm_losses}")
-    for name in flash:
-        check(lm_launches[name] == LM_DEPTH * LM_CHAIN,
-              f"{name} launched {lm_launches[name]} times in {LM_CHAIN} "
-              f"steps of {LM_DEPTH} blocks, expected {LM_DEPTH * LM_CHAIN}")
+    lm_want = want_launches(lm.remat, LM_DEPTH, LM_CHAIN)
+    check({n: lm_launches[n] for n in flash} == lm_want,
+          f"flash launches {lm_launches} in {LM_CHAIN} steps of {LM_DEPTH} "
+          f"blocks at remat {lm.remat!r}, expected {lm_want}")
     print(f"LM path: {LM_CHAIN} steps at B={LM_B} T={LM_T} dim={LM_DIM} "
           f"depth={LM_DEPTH} heads={lm.heads} vocab={1 << 14}, bf16, "
+          f"remat {lm.remat!r}, "
           f"{lm.table.num_keys} params; loss {lm_losses[0]:.6f} -> "
           f"{lm_losses[-1]:.6f} ({lm_losses}); launches {lm_launches}",
           flush=True)
@@ -1120,6 +1649,11 @@ def main() -> int:
     print("LM device time per step (torch.profiler): " + json.dumps(
         device_time(torch, lambda: run_lm_steps(lm, LM_PROFILED_STEPS),
                     LM_PROFILED_STEPS, lm_step["step_ms"])), flush=True)
+
+    # ---------------------------------- 19. decoding the trained LM (above)
+    t0 = time.perf_counter()
+    decoding = decode_phase(torch, dev, card, lm, mem_bw)
+    phase_s = {"19": time.perf_counter() - t0}
     del lm
 
     small = dict(dim=256, depth=2, vocab=1024, seed=0)
@@ -1222,85 +1756,16 @@ def main() -> int:
     }]
 
     # K2-K4 at the LM's shape: q, k, v strided views of one fused qkv
-    # activation, as the block hands them over; the library yardstick is
-    # scaled_dot_product_attention (causal) on [B, H, T, D], forward for
-    # K2 and its backward (dQ, dK, dV together) for K3 and K4
-    B_, T_, H_, D_ = LM_B, LM_T, LM_DIM // 64, 64
-    gen = torch.Generator(device=dev).manual_seed(1)
-    qkv = torch.randn((B_, T_, 3, H_ * D_), generator=gen,
-                      device=dev).to(torch.bfloat16)
-    q, k, v = (qkv[:, :, i].reshape(B_, T_, H_, D_) for i in range(3))
-    g_out = torch.randn((B_, T_, H_, D_), generator=gen,
-                        device=dev).to(torch.bfloat16)
-    kw = dict(causal=True, scale=D_ ** -0.5)
-    out, lse = tfa.flash_forward(q, k, v, **kw)
-    dvec = (g_out.float() * out.float()).sum(-1).transpose(1, 2)[..., None]
-    sq, sk, sv = (x.transpose(1, 2).contiguous().requires_grad_(True)
-                  for x in (q, k, v))
-    s_out = torch.nn.functional.scaled_dot_product_attention(
-        sq, sk, sv, is_causal=True)
-    s_g = g_out.transpose(1, 2).contiguous()
-    pairs, nbytes = attention_work(B_, T_, T_, H_, H_, D_, 0, 0, True, 2)
-    flops = {"flash_forward": 4 * D_ * pairs, "flash_bwd_dq": 6 * D_ * pairs,
-             "flash_bwd_dkv": 8 * D_ * pairs}
-    runs = {
-        "flash_forward": (lambda: tfa.flash_forward(q, k, v, **kw),
-                          lambda: tfa.flash_forward_reference(q, k, v, **kw),
-                          lambda: torch.nn.functional
-                          .scaled_dot_product_attention(sq, sk, sv,
-                                                        is_causal=True)),
-        "flash_bwd_dq": (lambda: tfa.flash_bwd_dq(q, k, v, g_out, lse, dvec,
-                                                  **kw),
-                         lambda: tfa.flash_bwd_dq_reference(
-                             q, k, v, g_out, lse, dvec, **kw),
-                         lambda: torch.autograd.grad(
-                             s_out, (sq, sk, sv), s_g, retain_graph=True)),
-        "flash_bwd_dkv": (lambda: tfa.flash_bwd_dkv(q, k, v, g_out, lse,
-                                                    dvec, **kw),
-                          lambda: tfa.flash_bwd_dkv_reference(
-                              q, k, v, g_out, lse, dvec, **kw),
-                          None),
-    }
-    replaces = {"flash_forward": "minips_tpu/ops/flash_attention.py:190",
-                "flash_bwd_dq": "minips_tpu/ops/flash_attention.py:297",
-                "flash_bwd_dkv": "minips_tpu/ops/flash_attention.py:332"}
-    sdpa_bwd_ms = None
-    for name in flash:
-        kernel_fn, plain_fn, lib_fn = runs[name]
-        ms = time_ms(torch, kernel_fn)
-        plain = time_ms(torch, plain_fn)
-        if lib_fn is not None:
-            lib = time_ms(torch, lib_fn)
-            if name == "flash_bwd_dq":
-                sdpa_bwd_ms = lib
-        else:
-            lib = sdpa_bwd_ms
-        t_bytes = 1e3 * nbytes[name] / mem_bw
-        t_ops = 1e3 * flops[name] / BF16_FLOPS
-        # SDPA's backward computes dQ, dK and dV in one call; K3's share of
-        # it is in proportion to the work, 6 D against K4's 8 D per pair
-        share = {"flash_forward": 1.0, "flash_bwd_dq": 6 / 14,
-                 "flash_bwd_dkv": 8 / 14}[name]
+    # activation, as the block hands them over
+    for name, row in flash_timings(torch, tfa, LM_B, LM_T, LM_DIM // 64,
+                                   LM_DIM // 64, 64, mem_bw).items():
         kernels.append({
             "name": name, "route": "cuda",
             "source": "minips_tpu_torch/csrc/flash_attn.cu",
-            "replaces": replaces[name],
+            "replaces": FLASH_REPLACES[name],
             "launches": lm_launches[name],
             "max_abs_err": flash_err[name],
-            "ms": ms, "plain_ms": plain, "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": lib,
-            "design": DESIGN[name],
-            "tflops": flops[name] / ms / 1e9,
-            "library_share_ms": None if lib is None else lib * share,
-            "library_call": ("scaled_dot_product_attention(is_causal=True) "
-                             + ("forward" if name == "flash_forward" else
-                                "backward, dQ dK dV together")),
-            "shape": {"B": B_, "T": T_, "H": H_, "Hk": H_, "D": D_,
-                      "dtype": "bfloat16", "causal": True,
-                      "live_pairs": pairs, "flops": flops[name],
-                      "bytes": nbytes[name]},
-        })
+            **row, "design": DESIGN[name]})
         print(f"{name} at the LM's shape: " + json.dumps(kernels[-1]),
               flush=True)
     # ------------------------------------------ 10. LM low-precision state
@@ -1325,11 +1790,8 @@ def main() -> int:
               f"non-finite LM loss at opt_state {opt}: {losses_o}")
         check(losses_o[-1] < losses_o[0],
               f"LM loss did not fall at opt_state {opt}: {losses_o}")
-        for name in flash:
-            check(launches_o[name] == LM_DEPTH * LM_CHAIN,
-                  f"{name} launched {launches_o[name]} times in {LM_CHAIN} "
-                  f"steps at opt_state {opt}, expected "
-                  f"{LM_DEPTH * LM_CHAIN}")
+        check(launches_o == lm_want, f"flash launches {launches_o} in "
+              f"{LM_CHAIN} steps at opt_state {opt}, expected {lm_want}")
         chain_o = []
         for _ in range(LM_REPS):
             torch.cuda.synchronize()
@@ -1764,6 +2226,24 @@ def main() -> int:
              "step_ms", "tokens_per_s", "peak_mem_gb")}
             for comm in GROUP_COMMS}}), flush=True)
 
+    # ---------------------------------- 17. the remat spectrum at full width
+    t0 = time.perf_counter()
+    remat_paths = remat_phase(torch, dev, card, tfa)
+    phase_s["17"] = time.perf_counter() - t0
+    # ------------------------------------ 18. lm_example at full width
+    app_paths, shapes_18 = lm_example_phase(torch, dev, card, tfa, mem_bw,
+                                            ptxas_by_kernel)
+    for k in kernels[1:]:
+        k["shapes"] = shapes_18[k["name"]]
+    phase_s["18"] = time.perf_counter() - t0 - phase_s["17"]
+    # ------------------------------------------------- 20. the MoE LM
+    t0 = time.perf_counter()
+    moe_phase(torch, dev, card)
+    phase_s["20"] = time.perf_counter() - t0
+    print("LM decoding (phase 19): " + json.dumps(decoding), flush=True)
+    print("seconds taken by phases 17-20: " + json.dumps(phase_s),
+          flush=True)
+
     kernels[0]["launches_by_path"] = dict(
         lrmlp=main_launches["gather_rows"], **wd_launches, **app_launches,
         lrmlp_group_ws1=grp["pair"]["gather_launches"])
@@ -1773,6 +2253,12 @@ def main() -> int:
         k["launches_by_path"].update({
             f"lm_comm_{comm}": grp["lm"][comm]["launches"][k["name"]]
             for comm in GROUP_COMMS})
+        k["launches_by_path"].update({
+            f"lm_remat_{mode}": v[k["name"]]
+            for mode, v in remat_paths.items()})
+        k["launches_by_path"].update({
+            f"lm_example_{name}": v[k["name"]]
+            for name, v in app_paths.items()})
 
     print(f"card: {card}")
     print(json.dumps({"kernels": kernels}))

@@ -9,9 +9,10 @@ bfloat16 or blockwise int8 by ``opt_state``, as ``bench_lm``'s
 the chunked tied head. Its defaults are ``bench_lm``'s: 8 blocks of width
 2048 with 32 heads of 64, vocab 2^14, a learned positional table of
 ``seq`` rows, B = 16 sequences of T = 1024 tokens, bf16 compute, head
-chunks of 128; remat is off (the JAX default ``dots`` mode changes no
-number, only memory). ``comm`` is the wire format of the step's pull and
-push (``"float32"``, ``"bfloat16"`` or ``"int8"``), as
+chunks of 128, and remat in mode ``"dots"`` (``bench_lm``'s default:
+every matmul output saved, the rest of each block and its attention
+forward recomputed in the backward). ``comm`` is the wire format of the
+step's pull and push (``"float32"``, ``"bfloat16"`` or ``"int8"``), as
 ``minips_tpu/apps/lm_example.py`` passes ``--comm`` to ``make_step``;
 given a process group, the table is range-sharded over it and each rank
 steps on its shard of the batch. ``chip_smoke.py`` and the tests share
@@ -38,7 +39,7 @@ OPT_STATE_UPDATERS = {"f32": "adam", "bf16": "adam_bf16", "int8": "adam8"}
 
 def build_lm(batch: int = 16, seq: int = 1024, *, dim: int = 2048,
              depth: int = 8, vocab: int = 1 << 14, device: DeviceLike = None,
-             seed: int = 0, head_chunk: int = 128, remat=False,
+             seed: int = 0, head_chunk: int = 128, remat="dots",
              compute_dtype: Optional[torch.dtype] = torch.bfloat16,
              kv_heads: Optional[int] = None, rope: bool = False,
              opt_state: str = "f32", comm: str = "float32",
@@ -47,14 +48,16 @@ def build_lm(batch: int = 16, seq: int = 1024, *, dim: int = 2048,
     ``dim // 64`` heads as in ``bench_lm``. ``opt_state`` is ``"f32"``
     (``adam``), ``"bf16"`` (``adam_bf16``) or ``"int8"`` (``adam8``).
     Returns a namespace with ``table``, ``step``
-    (``table.step_inplace(step, b)`` runs it), ``batches`` (two
+    (``table.step_inplace(step, b)`` runs it), ``grad_fn`` (the loss and
+    gradients the step takes, of a params tree), ``batches`` (two
     ``{"tokens": [batch, seq + 1]}`` int64 batches on the device, drawn
     from ``numpy.random.default_rng(seed)`` as ``bench_lm`` draws them),
-    ``heads`` and ``opt_state_bytes`` (the bytes of the optimizer-state
-    tensors, as ``bench_lm`` counts them; this rank's shard's under a
-    group). ``seed`` also seeds the weights (a ``torch.Generator`` on the
-    device). Under a group, ``batch`` is the global batch, which must
-    divide by the group size, and ``batches`` hold this rank's rows."""
+    ``heads``, ``remat`` and ``opt_state_bytes`` (the bytes of the
+    optimizer-state tensors, as ``bench_lm`` counts them; this rank's
+    shard's under a group). ``seed`` also seeds the weights (a
+    ``torch.Generator`` on the device). Under a group, ``batch`` is the
+    global batch, which must divide by the group size, and ``batches``
+    hold this rank's rows."""
     if opt_state not in OPT_STATE_UPDATERS:
         raise ValueError(f"opt_state must be one of "
                          f"{sorted(OPT_STATE_UPDATERS)}, got {opt_state!r}")
@@ -68,10 +71,9 @@ def build_lm(batch: int = 16, seq: int = 1024, *, dim: int = 2048,
                        updater=OPT_STATE_UPDATERS[opt_state], lr=1e-3,
                        device=device, group=group)
     del params  # the table holds the only copy, as one flat vector
-    step = table.make_step(
-        functools.partial(tfm.grad_fn, heads=heads, attn_impl="flash",
-                          remat=remat, head_chunk=head_chunk),
-        compute_dtype=compute_dtype, comm=comm)
+    grad_fn = functools.partial(tfm.grad_fn, heads=heads, attn_impl="flash",
+                                remat=remat, head_chunk=head_chunk)
+    step = table.make_step(grad_fn, compute_dtype=compute_dtype, comm=comm)
     rank, n = world(group)
     if batch % n:
         raise ValueError(f"batch {batch} must divide by the group size {n}")
@@ -82,5 +84,6 @@ def build_lm(batch: int = 16, seq: int = 1024, *, dim: int = 2048,
         for _ in range(2)]
     opt_state_bytes = sum(x.numel() * x.element_size()
                           for x in table.opt_state)
-    return SimpleNamespace(table=table, step=step, batches=batches,
-                           heads=heads, opt_state_bytes=opt_state_bytes)
+    return SimpleNamespace(table=table, step=step, grad_fn=grad_fn,
+                           batches=batches, heads=heads, remat=remat,
+                           opt_state_bytes=opt_state_bytes)

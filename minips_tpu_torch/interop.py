@@ -55,7 +55,8 @@ def sparse_to_numpy(table: SparseTable) -> dict:
 def tree_from_numpy(tree, device: DeviceLike = None):
     """A nested dict/list of numpy arrays (the JAX package's params via
     ``jax.tree.map(np.asarray, ...)`` or plain ``np.asarray`` leaves) as the
-    port's tree of tensors on ``device`` (the card by default)."""
+    port's tree of tensors on ``device`` (the card by default). Any
+    nesting carries: the MoE LM's ``blk["moe"]`` dicts too."""
     device = resolve_device(device)
     return tree_map(lambda x: torch.as_tensor(np.array(x)).to(device), tree)
 

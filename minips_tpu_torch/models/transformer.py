@@ -1,5 +1,5 @@
 """Decoder-only transformer LM — the port of ``minips_tpu/models/transformer.py``
-(the single-program path).
+(the single-program path and the one-device MoE LM).
 
 Plain-tree params like the other models, so the whole LM lives in one
 ``DenseTable``: pre-LN blocks, learned positional embeddings (or RoPE), a
@@ -9,25 +9,80 @@ first block's attention projection, exactly where the JAX package casts.
 Attention is ``reference`` (plain O(T^2) scores) or ``flash`` (K2–K4 on the
 card, their plain versions on the CPU).
 
-Not ported here: dropout > 0 (its masks come from ``jax.random``, which
-torch cannot replay; it waits for an RNG contract of its own), the
-selective remat modes ``"attn"``, ``"dots"``, ``"hybrid"`` and
-``"hybrid_qkv"``, and the sequence-, tensor-, pipeline- and
-expert-parallel variants (``apply_sp``, ``apply_tp``, ``apply_pp``, the MoE
-LM, ``sp_train_wiring``). ROADMAP.md queue 1 lists each.
+**Remat.** ``remat=True`` recomputes whole blocks in the backward
+(``torch.utils.checkpoint``). The selective modes save what the JAX
+package's ``_remat_policy`` saves and recompute the rest:
+``"attn"`` the attention output, ``"hybrid"`` it and the pre-GELU MLP
+hidden, ``"hybrid_qkv"`` those and the q/k/v projection, ``"dots"`` every
+matmul output. They run as ``torch.utils.checkpoint`` with a selective
+policy (``create_selective_checkpoint_contexts``), which sees dispatcher
+ops: q/k/v and the MLP hidden are the outputs of matmuls issued inside
+``_producing(name)``, which the policy saves (so a recompute skips those
+matmuls, as XLA drops a saved value's producer), and the attention output
+passes through :func:`checkpoint_name`, an ``aten.alias`` issued while its
+name is set; under ``"dots"`` the policy saves the outputs of every
+``mm``/``bmm``. The flash kernels launch through ``ctypes`` inside an
+autograd function, which the policy cannot see, so every mode recomputes
+the attention forward (K2) in the backward, as every JAX mode does (no
+policy there saves the logsumexp): K2 runs twice per block per step under
+any remat, K3 and K4 once (:data:`FLASH_LAUNCHES_PER_BLOCK`).
+
+**Dropout** (GPT-style: the embedding and each block's two residual
+branches) keeps the JAX package's key structure with an RNG of its own,
+since torch cannot replay ``jax.random``. A key is a pair of 32-bit words
+on the host. ``batch["rng"]`` carries one per step, as a CPU tensor or
+array of shape ``[2]``, or ``[W, 2]`` (one per worker; a rank reads its
+first row); ``lm_example`` makes them from ``prng_key(seed + 71)`` folded
+with the step and then the worker. :func:`fold_in` derives the embedding's
+key with ``2**20``, block ``i``'s with ``i``, and within a block the
+attention branch's with 0 and the MLP's with 1. :func:`keep_mask` turns a
+key into a mask: uniforms from a fresh ``torch.Generator`` on the tensor's
+device seeded from the key, kept below ``1 - rate``. A mask is a pure
+function of (step key, block, site), so a remat recompute draws the same
+one; the key never leaves the host, so no step reads the card back for it.
+The refusals are the JAX package's: dropout with no key, a 2-D key stack
+that is not ``[W, 2]``; and a key on the card is refused too.
+
+Not ported here: the sequence-, tensor-, pipeline- and expert-parallel
+variants (``apply_sp``, ``sp_train_wiring``, ``loss_sp``, ``apply_tp``,
+``tp_specs``, ``apply_pp``, ``pp_specs``, ``apply_ep``, ``ep_lm_specs``),
+ROADMAP.md queue 1 item 13.
 """
 
 from __future__ import annotations
 
+import contextlib
+import functools
+import threading
 from typing import Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts,
+                                    noop_context_fn)
 
 from minips_tpu_torch.parallel.mesh import DeviceLike, resolve_device
 from minips_tpu_torch.parallel.ring_attention import reference_attention
 from minips_tpu_torch.utils.tree import tree_map, value_and_grad
+
+# K2, K3 and K4 launches per block per training step under each remat
+# mode: the pallas_call equations of each kernel in the JAX package's grad
+# jaxpr (forward plus recompute), which tests/test_torch_transformer.py
+# counts on both sides
+FLASH_LAUNCHES_PER_BLOCK = {
+    mode: {"flash_forward": 1 if mode is False else 2, "flash_bwd_dq": 1,
+           "flash_bwd_dkv": 1}
+    for mode in (False, True, "attn", "dots", "hybrid", "hybrid_qkv")}
+# the tensors each selective mode saves, by their checkpoint names
+_SAVED_NAMES = {"attn": ("attn_out",), "hybrid": ("attn_out", "mlp_hidden"),
+                "hybrid_qkv": ("attn_out", "mlp_hidden", "qkv")}
+_MATMULS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+            torch.ops.aten.addmm.default, torch.ops.aten.baddbmm.default)
+_naming = threading.local()
+_M32 = 0xFFFFFFFF
+EMBED_SITE = 2 ** 20  # the embedding dropout's fold, as in the JAX package
 
 
 def init(gen: torch.Generator, *, vocab: int = 256, dim: int = 64,
@@ -84,70 +139,190 @@ def _ln(x, p):
     return (x - mu) * torch.rsqrt(var + 1e-5) * p["g"] + p["b"]
 
 
-def _block(h, blk, heads, attn_fn, compute_dtype):
-    """One pre-LN block: attention, then :func:`_block_tail`."""
+# ------------------------------------------------------------------ dropout
+def _mix32(x: int) -> int:
+    """A bijective 32-bit integer hash (xor-shift, multiply; twice)."""
+    x = (((x >> 16) ^ x) * 0x45D9F3B) & _M32
+    x = (((x >> 16) ^ x) * 0x45D9F3B) & _M32
+    return (x >> 16) ^ x
+
+
+def prng_key(seed: int) -> tuple:
+    """A raw key from a seed, the two words ``jax.random.PRNGKey`` holds:
+    ``(seed >> 32, seed & 0xFFFFFFFF)``."""
+    return ((seed >> 32) & _M32, seed & _M32)
+
+
+def fold_in(key, data: int) -> tuple:
+    """A new key from ``key`` and an integer, on the host (the role of
+    ``jax.random.fold_in``; other numbers)."""
+    k0, k1 = key
+    a = _mix32(k0 ^ _mix32(data & _M32))
+    b = _mix32(k1 ^ _mix32((data ^ 0x9E3779B9) & _M32) ^ a)
+    return (_mix32(a ^ b), b)
+
+
+def keep_mask(key, shape, rate: float, device) -> torch.Tensor:
+    """Bernoulli(1 - rate) keep mask of ``shape`` on ``device``, a pure
+    function of its arguments: uniforms drawn by a fresh generator on the
+    device seeded from the key, kept where below ``1 - rate`` (the rule of
+    ``jax.random.bernoulli``)."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed((key[0] << 32) | key[1])
+    return torch.rand(shape, generator=gen, device=device) < 1.0 - rate
+
+
+def _dropout(x, rate, key):
+    """Inverted dropout; the identity when rate is 0 or no key is given
+    (eval)."""
+    if not rate or key is None:
+        return x
+    keep = keep_mask(key, x.shape, rate, x.device)
+    return torch.where(keep, x / (1.0 - rate), 0.0)
+
+
+def _step_key(rng, dropout: float):
+    """The step's key from ``batch["rng"]`` under the contract in the module
+    docstring; None when dropout is off."""
+    if not dropout:
+        return None
+    if rng is None:
+        raise ValueError('dropout > 0 needs a per-step key in '
+                         'batch["rng"] (the fused step is pure)')
+    if torch.is_tensor(rng):
+        if rng.device.type != "cpu":
+            raise ValueError(
+                'batch["rng"] must lie on the host (a CPU tensor or an '
+                'array): a key on the card would be read back every step')
+        rng = rng.numpy()
+    rng = np.asarray(rng)
+    if rng.ndim == 2:
+        # one key per worker: a rank's batch carries its own rows first
+        if rng.shape[-1] != 2:
+            raise ValueError(f'batch["rng"] 2-D stack must be [W, 2] raw '
+                             f'uint32 keys, got {rng.shape}')
+        rng = rng[0]
+    if rng.shape != (2,):
+        raise ValueError(f'batch["rng"] must be a [2] key or a [W, 2] '
+                         f'stack, got shape {rng.shape}')
+    return (int(rng[0]) & _M32, int(rng[1]) & _M32)
+
+
+# -------------------------------------------------------------------- remat
+@contextlib.contextmanager
+def _producing(name: str):
+    """The matmuls issued inside produce the tensor ``name``: a selective
+    policy that saves ``name`` saves their outputs, so that a recompute
+    skips them, as XLA drops a saved value's producer."""
+    _naming.name = name
+    try:
+        yield
+    finally:
+        _naming.name = None
+
+
+def checkpoint_name(x, name: str):
+    """``x`` tagged ``name`` for the selective remat policies: an
+    ``aten.alias`` of it (no copy) issued while the name is set. For a
+    tensor that no matmul of the block produces (the attention output);
+    its producer is recomputed all the same."""
+    with _producing(name):
+        return torch.ops.aten.alias(x)
+
+
+def _remat_policy(remat):
+    """The ``context_fn`` of the block checkpoint for a remat mode (None
+    for ``True``: recompute the whole block). ``"attn"``, ``"hybrid"`` and
+    ``"hybrid_qkv"`` save the tensors that the JAX package's
+    ``save_only_these_names`` names, ``"dots"`` every matmul output, as
+    ``checkpoint_dots``."""
+    if remat is True:
+        return None
+    if remat == "dots":
+        names, dots = (), True
+    elif remat in _SAVED_NAMES:
+        names, dots = _SAVED_NAMES[remat], False
+    else:
+        raise ValueError(f"unknown remat mode {remat!r} "
+                         "(expected True/False, 'attn', 'dots', 'hybrid' "
+                         "or 'hybrid_qkv')")
+
+    def policy(ctx, op, *args, **kwargs):
+        named = getattr(_naming, "name", None) in names
+        if op in _MATMULS and (dots or named) or (
+                named and op is torch.ops.aten.alias.default):
+            return CheckpointPolicy.MUST_SAVE
+        return CheckpointPolicy.PREFER_RECOMPUTE
+
+    return functools.partial(create_selective_checkpoint_contexts, policy)
+
+
+# ------------------------------------------------------------------- blocks
+def _block(h, blk, heads, attn_fn, compute_dtype, ffn_fn=None, dropout=0.0,
+           rng=None):
+    """One pre-LN block: attention, then :func:`_block_tail`. Returns
+    ``(h, aux)``."""
     B, T, _ = h.shape
     x = _ln(h, blk["ln1"]).to(compute_dtype)
     # q/k/v stay in compute_dtype: the kernels run their dots at the input
     # type with float32 sums
     if "wkv" in blk:
-        q = x @ blk["wq"].to(compute_dtype)
-        wkv = blk["wkv"].to(compute_dtype)
-        kv = (x @ wkv.reshape(wkv.shape[0], -1)).view(B, T, 2, -1)
+        wq, wkv = blk["wq"].to(compute_dtype), blk["wkv"].to(compute_dtype)
+        with _producing("qkv"):
+            q = x @ wq
+            kv = (x @ wkv.reshape(wkv.shape[0], -1)).view(B, T, 2, -1)
         hd = q.shape[-1] // heads
         q = q.view(B, T, heads, hd)
         k = kv[:, :, 0].reshape(B, T, -1, hd)
         v = kv[:, :, 1].reshape(B, T, -1, hd)
     else:
         w = blk["qkv"].to(compute_dtype)
-        qkv = (x @ w.reshape(w.shape[0], -1)).view(B, T, 3, -1)
+        with _producing("qkv"):
+            qkv = (x @ w.reshape(w.shape[0], -1)).view(B, T, 3, -1)
         hd = qkv.shape[-1] // heads
         q, k, v = (qkv[:, :, i].reshape(B, T, heads, hd) for i in range(3))
     a = attn_fn(q, k, v).reshape(B, T, -1)
-    return _block_tail(h, blk, a, compute_dtype)
+    return _block_tail(h, blk, a, compute_dtype, ffn_fn, dropout, rng)
 
 
-def _block_tail(h, blk, a, compute_dtype):
-    """Output projection + residual, then MLP + residual; the residual
-    stream turns float32 here."""
+def _block_tail(h, blk, a, compute_dtype, ffn_fn=None, dropout=0.0,
+                rng=None):
+    """Output projection + residual, then the MLP (or ``ffn_fn(blk, x_2d
+    [B*T, D]) -> (y_2d, aux)``, the MoE layer) + residual; the residual
+    stream turns float32 here. Shared by the training block and the
+    KV-cached decode block (``models/decode.py``). Returns ``(h, aux)``, aux
+    0 for the dense MLP."""
+    a = checkpoint_name(a, "attn_out")
     att = (a.to(compute_dtype) @ blk["proj"].to(compute_dtype)).float()
+    if dropout and rng is not None:  # GPT-style residual dropout
+        att = _dropout(att, dropout, fold_in(rng, 0))
     h = h + att
+    if ffn_fn is not None:
+        B, T, D = h.shape
+        y, aux = ffn_fn(blk, _ln(h, blk["ln2"]).reshape(B * T, D))
+        return h + y.reshape(B, T, D), aux
     x = _ln(h, blk["ln2"]).to(compute_dtype)
-    z = x @ blk["mlp_in"].to(compute_dtype)
+    w_in = blk["mlp_in"].to(compute_dtype)
+    # the pre-GELU hidden: GELU's backward reads its input, so the hybrid
+    # modes save this tensor, not its activation
+    with _producing("mlp_hidden"):
+        z = x @ w_in
     x = F.gelu(z, approximate="tanh")   # jax.nn.gelu's default
     m = (x @ blk["mlp_out"].to(compute_dtype)).float()
-    return h + m
+    if dropout and rng is not None:
+        m = _dropout(m, dropout, fold_in(rng, 1))
+    return h + m, 0.0
 
 
-def _check_remat(remat):
-    if remat is True or remat is False:
-        return
-    if remat in ("attn", "dots", "hybrid", "hybrid_qkv"):
-        raise NotImplementedError(
-            f"remat={remat!r} is not ported yet (ROADMAP.md queue 1: the "
-            "selective remat modes); remat=True recomputes whole blocks")
-    raise ValueError(f"unknown remat mode {remat!r} (expected True/False, "
-                     "'attn', 'dots', 'hybrid' or 'hybrid_qkv')")
-
-
-def _check_dropout(dropout):
-    if not 0.0 <= dropout < 1.0:
-        raise ValueError(f"dropout rate {dropout} outside [0, 1)")
-    if dropout:
-        raise NotImplementedError(
-            "dropout > 0 is not ported yet (ROADMAP.md queue 1: dropout "
-            "needs an RNG contract of its own; jax.random masks cannot be "
-            "replayed in torch)")
-
-
-def _forward(params, tokens, pos, heads, attn_fn, compute_dtype, remat=False,
-             head=True, dropout=0.0):
-    """Logits ``[B, T, vocab]`` float32, or with ``head=False`` the final
-    normed hidden state (the chunked-CE path applies the tied head
-    itself). ``remat=True`` wraps each block in ``torch.utils.checkpoint``
-    so the backward recomputes it."""
-    _check_remat(remat)
-    _check_dropout(dropout)
+def _forward(params, tokens, pos, heads, attn_fn, compute_dtype, ffn_fn=None,
+             remat=False, head=True, dropout=0.0, rng=None):
+    """``(logits [B, T, vocab] float32, aux)``, or with ``head=False`` the
+    final normed hidden state in place of the logits (the chunked-CE path
+    applies the tied head itself). ``aux`` sums the blocks' MoE
+    load-balancing losses (0 for dense blocks). ``remat`` checkpoints each
+    block (see the module docstring); ``dropout`` with a key ``rng``
+    applies GPT-style dropout."""
+    context_fn = _remat_policy(remat) if remat else None
     if "pos_emb" in params:
         max_len = params["pos_emb"].shape[0]
         if pos.shape[0] > max_len:
@@ -157,17 +332,26 @@ def _forward(params, tokens, pos, heads, attn_fn, compute_dtype, remat=False,
     else:
         h = params["tok_emb"][tokens]
         attn_fn = _rope_wrap(attn_fn, pos)
-    for blk in params["blocks"]:
+    if not 0.0 <= dropout < 1.0:
+        raise ValueError(f"dropout rate {dropout} outside [0, 1)")
+    aux_total = 0.0
+    if dropout and rng is not None:  # embedding dropout (GPT-style)
+        h = _dropout(h, dropout, fold_in(rng, EMBED_SITE))
+    for i, blk in enumerate(params["blocks"]):
+        blk_rng = (fold_in(rng, i) if dropout and rng is not None else None)
+        args = (h, blk, heads, attn_fn, compute_dtype, ffn_fn, dropout,
+                blk_rng)
         if remat:
-            h = checkpoint(_block, h, blk, heads, attn_fn, compute_dtype,
-                           use_reentrant=False)
+            h, aux = checkpoint(_block, *args, use_reentrant=False,
+                                context_fn=context_fn or noop_context_fn)
         else:
-            h = _block(h, blk, heads, attn_fn, compute_dtype)
+            h, aux = _block(*args)
+        aux_total = aux_total + aux
     h = _ln(h, params["ln_f"])
     if not head:
-        return h
-    return (h.to(compute_dtype)
-            @ params["tok_emb"].T.to(compute_dtype)).float()
+        return h, aux_total
+    return ((h.to(compute_dtype)
+             @ params["tok_emb"].T.to(compute_dtype)).float(), aux_total)
 
 
 def decay_mask(params):
@@ -211,12 +395,50 @@ def _attn_fn(attn_impl: str):
 
 
 def apply(params, tokens, *, heads=4, compute_dtype=torch.bfloat16,
-          remat=False, attn_impl="reference", dropout=0.0):
-    """Logits ``[B, T, vocab]``; plain causal attention in one program."""
+          remat=False, attn_impl="reference", dropout=0.0, rng=None):
+    """Logits ``[B, T, vocab]``; plain causal attention in one program.
+    ``dropout`` with a key ``rng`` (a pair of words, :func:`prng_key`)
+    applies GPT-style dropout, train-time only."""
     T = tokens.shape[1]
     return _forward(params, tokens, torch.arange(T, device=tokens.device),
                     heads, _attn_fn(attn_impl), compute_dtype, remat=remat,
-                    dropout=dropout)
+                    dropout=dropout, rng=rng)[0]
+
+
+def init_moe_lm(gen: torch.Generator, *, vocab: int = 256, dim: int = 64,
+                heads: int = 4, depth: int = 2, max_len: int = 1024,
+                num_experts: int = 8, expert_hidden: int = 256,
+                kv_heads: Optional[int] = None, rope: bool = False,
+                device: DeviceLike = None):
+    """The LM whose FFNs are Switch-style MoE layers
+    (``parallel/moe.py``): ``init``'s attention, each block's MLP replaced
+    by a router and stacked expert weights (``blk["moe"]``)."""
+    from minips_tpu_torch.parallel.moe import init_moe
+
+    device = resolve_device(device)
+    base = init(gen, vocab=vocab, dim=dim, heads=heads, depth=depth,
+                max_len=max_len, mlp_mult=1, kv_heads=kv_heads, rope=rope,
+                device=device)
+    for blk in base["blocks"]:
+        del blk["mlp_in"], blk["mlp_out"]
+        blk["moe"] = init_moe(gen, num_experts, dim, expert_hidden,
+                              device=device)
+    return base
+
+
+def apply_moe_dense(params, tokens, *, heads=4, capacity: int,
+                    compute_dtype=torch.bfloat16, k_top: int = 1):
+    """The MoE LM on one device, plain causal attention: ``(logits
+    [B, T, vocab], total aux loss)``."""
+    from minips_tpu_torch.parallel.moe import moe_apply_dense
+
+    return _forward(
+        params, tokens, torch.arange(tokens.shape[1], device=tokens.device),
+        heads, lambda q, k, v: reference_attention(q, k, v, causal=True),
+        compute_dtype,
+        ffn_fn=lambda blk, x: moe_apply_dense(
+            blk["moe"], x, capacity=capacity, compute_dtype=compute_dtype,
+            k_top=k_top))
 
 
 def nll(logits, targets):
@@ -251,19 +473,22 @@ def loss(params, batch, *, heads=4, compute_dtype=torch.bfloat16,
          attn_impl="reference", remat=False, head_chunk=0, dropout=0.0):
     """Next-token cross-entropy; ``batch = {"tokens": [B, T+1]}`` integer
     ids. ``head_chunk > 0`` takes the tied head and the CE in sequence
-    chunks (:func:`nll_chunked`)."""
+    chunks (:func:`nll_chunked`). ``dropout > 0`` reads the step's key from
+    ``batch["rng"]`` (the contract in the module docstring) and raises
+    without one."""
     toks = batch["tokens"].long()
+    rng = _step_key(batch.get("rng"), dropout)
     if head_chunk:
         T = toks.shape[1] - 1
-        h = _forward(params, toks[:, :-1],
-                     torch.arange(T, device=toks.device), heads,
-                     _attn_fn(attn_impl), compute_dtype, remat=remat,
-                     head=False, dropout=dropout)
+        h, _ = _forward(params, toks[:, :-1],
+                        torch.arange(T, device=toks.device), heads,
+                        _attn_fn(attn_impl), compute_dtype, remat=remat,
+                        head=False, dropout=dropout, rng=rng)
         return nll_chunked(h, params["tok_emb"], toks[:, 1:], head_chunk,
                            compute_dtype)
     logits = apply(params, toks[:, :-1], heads=heads,
                    compute_dtype=compute_dtype, attn_impl=attn_impl,
-                   remat=remat, dropout=dropout)
+                   remat=remat, dropout=dropout, rng=rng)
     return nll(logits, toks[:, 1:])
 
 

@@ -388,6 +388,46 @@ def scale_by_learning_rate(lr: LearningRate) -> Updater:
     return Updater(lambda p: [_count0(p)], update, 1, _take_new)
 
 
+def warmup_cosine_decay_schedule(init_value: float, peak_value: float,
+                                 warmup_steps: int, decay_steps: int,
+                                 end_value: float = 0.0,
+                                 exponent: float = 1.0):
+    """``optax.warmup_cosine_decay_schedule`` (0.2.6) as a schedule of the
+    int32 count tensor: a linear ramp from ``init_value`` to
+    ``peak_value`` over ``warmup_steps``, then a cosine decay to
+    ``end_value`` at ``decay_steps`` (warm-up included), held there. Its
+    float32 operations are optax's, in optax's order."""
+    alpha = 0.0 if peak_value == 0.0 else end_value / peak_value
+    cosine_steps = decay_steps - warmup_steps
+    if not cosine_steps > 0:
+        raise ValueError("The cosine_decay_schedule requires positive "
+                         f"decay_steps, got decay_steps={cosine_steps}.")
+
+    def f32(x, like):
+        return torch.tensor(x, dtype=torch.float32, device=like.device)
+
+    def linear(count):  # optax.polynomial_schedule at power 1
+        if warmup_steps <= 0:
+            return f32(init_value, count)
+        c = torch.clamp(count, 0, warmup_steps).to(torch.float32)
+        frac = 1 - c / f32(warmup_steps, count)
+        return f32(init_value - peak_value, count) * frac + peak_value
+
+    def cosine(count):  # optax.cosine_decay_schedule
+        steps = f32(cosine_steps, count)
+        c = torch.minimum(count.to(torch.float32), steps)
+        decay = 0.5 * (1 + torch.cos(f32(np.pi, count) * c / steps))
+        decayed = f32(1 - alpha, count) * decay ** exponent + alpha
+        return f32(peak_value, count) * decayed
+
+    def schedule(count):
+        count = torch.as_tensor(count, dtype=torch.int32)
+        return torch.where(count < warmup_steps, linear(count),
+                           cosine(count - warmup_steps))
+
+    return schedule
+
+
 def make_updater(name: str, lr: LearningRate, **kwargs) -> Updater:
     """The port of ``make_updater``: ``sgd`` (``momentum``), ``adagrad``
     (``initial_accumulator_value``), ``adam``, ``adamw``, ``adam_bf16``

@@ -72,11 +72,14 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "        'minips_tpu_torch.utils.native_lib',\n"
         "        'minips_tpu_torch.ops.quantized_comm',\n"
         "        'minips_tpu_torch.parallel.mesh',\n"
-        "        'minips_tpu_torch.parallel.partition'}\n"
+        "        'minips_tpu_torch.parallel.partition',\n"
+        "        'minips_tpu_torch.parallel.moe',\n"
+        "        'minips_tpu_torch.models.decode',\n"
+        "        'minips_tpu_torch.apps.lm_example'}\n"
         "print(len(names), sorted(need - set(names)), bad)\n")
     assert r.returncode == 0, r.stderr
     count, rest = r.stdout.split(" ", 1)
-    assert int(count) >= 55 and rest.strip() == "[] []", r.stdout
+    assert int(count) >= 58 and rest.strip() == "[] []", r.stdout
 
 
 def test_importing_the_build_module_runs_nothing():
@@ -117,6 +120,10 @@ def test_importing_the_build_module_runs_nothing():
     "from minips_tpu_torch.apps.mf_example import main; main()",
     "import sys; sys.argv = ['w2v', '--num_iters', '1']; "
     "from minips_tpu_torch.apps.word2vec_example import main; main()",
+    "import sys; sys.argv = ['lm', '--num_iters', '1']; "
+    "from minips_tpu_torch.apps.lm_example import main; main()",
+    "import torch; from minips_tpu_torch.models.transformer import "
+    "init_moe_lm; init_moe_lm(torch.Generator())",
 ])
 def test_entry_points_default_to_cuda_and_raise_without_it(entry):
     _no_cuda()

@@ -1,0 +1,147 @@
+"""The port's one-device MoE (``parallel/moe.py``, ``init_moe_lm``,
+``apply_moe_dense``) against the JAX package's.
+
+The layer on seeded numpy tokens (N = 48, D = 16, 4 experts of hidden 8)
+with the JAX package's weights, at float32 compute, top-1 and top-2, with
+a capacity that binds (drops routes) and one that holds every route:
+outputs, the aux loss and the gradients of ``sum(y * r) + aux`` (r fixed
+random) to 1e-5, the same sums in other orders. The dispatch pattern,
+which routes are kept and in which slot, is compared exactly (the
+first-choice shares, means of one-hots, to 1e-6: the mean sums in
+another order). The MoE LM
+(2 blocks, dim 32, 4 heads, 4 experts) holds logits and aux to 1e-5 at
+float32 and its tree carries across through ``interop``, as any params
+tree does, in the JAX package's ravel order.
+"""
+
+from __future__ import annotations
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.flatten_util import ravel_pytree
+
+from minips_tpu.models import transformer as jtfm
+from minips_tpu.parallel import moe as jmoe
+from minips_tpu_torch import interop
+from minips_tpu_torch.models import transformer as ttfm
+from minips_tpu_torch.parallel import moe as tmoe
+from minips_tpu_torch.tables.dense import DenseTable, ravel
+from minips_tpu_torch.utils.tree import tree_leaves, value_and_grad
+
+N, D, E, H = 48, 16, 4, 8
+TOL = 1e-5
+
+
+def _layer(seed=0):
+    jp = jmoe.init_moe(jax.random.PRNGKey(seed), E, D, H)
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(N, D)).astype(np.float32)
+    r = rng.normal(size=(N, D)).astype(np.float32)
+    return jp, interop.tree_from_numpy(jax.tree.map(np.asarray, jp),
+                                       "cpu"), x, r
+
+
+# capacity per expert: 4 binds (the even share at k=1 is 12), 2 * k * N
+# holds every route
+@pytest.mark.parametrize("k_top,capacity", [(1, 4), (1, 96), (2, 6),
+                                            (2, 192)])
+def test_moe_apply_dense_matches_jax(k_top, capacity):
+    jp, tp, x, r = _layer()
+    kw = dict(capacity=capacity, k_top=k_top)
+
+    def jloss(p, xx):
+        y, aux = jmoe.moe_apply_dense(p, xx, compute_dtype=jnp.float32,
+                                      **kw)
+        return jnp.sum(y * r) + aux, (y, aux)
+
+    (_, (jy, jaux)), (jgp, jgx) = jax.value_and_grad(
+        jloss, argnums=(0, 1), has_aux=True)(jp, jnp.asarray(x))
+    tx = torch.from_numpy(x).requires_grad_(True)
+    leaves = [v.detach().requires_grad_(True) for v in tree_leaves(tp)]
+    tparams = dict(zip(sorted(tp), leaves))
+    ty, taux = tmoe.moe_apply_dense(tparams, tx,
+                                    compute_dtype=torch.float32, **kw)
+    grads = torch.autograd.grad(
+        (ty * torch.from_numpy(r)).sum() + taux, leaves + [tx])
+    np.testing.assert_allclose(ty.detach().numpy(), np.asarray(jy), rtol=0,
+                               atol=TOL)
+    np.testing.assert_allclose(float(taux.detach()), float(jaux), rtol=TOL)
+    for got, want in zip(grads, jax.tree.leaves(jgp) + [jgx]):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
+                                   atol=TOL)
+    jd, jc, jf, jm = jmoe._dispatch_combine(jnp.asarray(x), jp["router"], E,
+                                            capacity, k_top)
+    td, tc, tf, tm = tmoe._dispatch_combine(torch.from_numpy(x),
+                                            tp["router"], E, capacity,
+                                            k_top)
+    np.testing.assert_array_equal(td.numpy(), np.asarray(jd))
+    np.testing.assert_allclose(tc.numpy(), np.asarray(jc), rtol=0, atol=TOL)
+    np.testing.assert_allclose(tf.numpy(), np.asarray(jf), rtol=1e-6)
+    np.testing.assert_allclose(tm.numpy(), np.asarray(jm), rtol=0, atol=TOL)
+    # a capacity that binds drops routes; one of 2 k N slots holds all
+    kept = int(td.sum())
+    assert kept < k_top * N if capacity < N // E * k_top else \
+        kept == k_top * N
+
+
+def _lms(kv_heads=None, rope=False):
+    jp = jtfm.init_moe_lm(jax.random.PRNGKey(0), vocab=64, dim=32, heads=4,
+                          depth=2, max_len=16, num_experts=4,
+                          expert_hidden=16, kv_heads=kv_heads, rope=rope)
+    return jp, interop.tree_from_numpy(jax.tree.map(np.asarray, jp), "cpu")
+
+
+@pytest.mark.parametrize("k_top,capacity,kv_heads,rope", [
+    (1, 8, None, False), (2, 64, 2, True), (2, 6, None, False)])
+def test_moe_lm_logits_and_aux_match_jax(k_top, capacity, kv_heads, rope):
+    jp, tp = _lms(kv_heads, rope)
+    toks = np.random.default_rng(1).integers(0, 64, size=(2, 16))
+    kw = dict(heads=4, capacity=capacity, k_top=k_top)
+    jl, jaux = jtfm.apply_moe_dense(jp, jnp.asarray(toks),
+                                    compute_dtype=jnp.float32, **kw)
+    tl, taux = ttfm.apply_moe_dense(tp, torch.from_numpy(toks),
+                                    compute_dtype=torch.float32, **kw)
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=0, atol=TOL)
+    np.testing.assert_allclose(float(taux), float(jaux), rtol=TOL)
+    # and the gradient of the LM's loss with the load-balancing term
+    tgt = torch.from_numpy(toks[:, 1:])
+
+    def tloss(p):
+        logits, aux = ttfm.apply_moe_dense(p, torch.from_numpy(toks[:, :-1]),
+                                           compute_dtype=torch.float32, **kw)
+        return ttfm.nll(logits, tgt) + 0.01 * aux
+
+    def jloss(p):
+        logits, aux = jtfm.apply_moe_dense(p, jnp.asarray(toks[:, :-1]),
+                                           compute_dtype=jnp.float32, **kw)
+        return jtfm.nll(logits, jnp.asarray(toks[:, 1:])) + 0.01 * aux
+
+    tval, tg = value_and_grad(tloss, tp)
+    jval, jg = jax.value_and_grad(jloss)(jp)
+    np.testing.assert_allclose(float(tval), float(jval), rtol=TOL)
+    for got, want in zip(tree_leaves(tg), jax.tree.leaves(jg)):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
+                                   atol=TOL)
+
+
+def test_moe_lm_tree_and_interop():
+    jp, tp = _lms(2)
+    mine = ttfm.init_moe_lm(torch.Generator().manual_seed(0), vocab=64,
+                            dim=32, heads=4, depth=2, max_len=16,
+                            num_experts=4, expert_hidden=16, kv_heads=2,
+                            device="cpu")
+    assert [x.shape for x in jax.tree.leaves(jp)] == \
+        [tuple(x.shape) for x in tree_leaves(mine)]
+    assert sorted(mine["blocks"][0]) == ["ln1", "ln2", "moe", "proj", "wkv",
+                                         "wq"]
+    assert sorted(mine["blocks"][0]["moe"]) == ["router", "w_in", "w_out"]
+    flat, unravel = ravel(tp)
+    np.testing.assert_array_equal(flat.numpy(),
+                                  np.asarray(ravel_pytree(jp)[0]))
+    table = DenseTable(tp, updater="adam", device="cpu")
+    back = table.pull()
+    assert all(torch.equal(a, b)
+               for a, b in zip(tree_leaves(back), tree_leaves(tp)))
