@@ -1015,7 +1015,8 @@ def decode_phase(torch, dev, card, lm, mem_bw) -> dict:
 
 def remat_phase(torch, dev, card, tfa) -> dict:
     """Phase 17: ``build_lm`` at full width under every remat mode,
-    REMAT_STEPS steps each: launches, step time, tokens/s and peak memory;
+    REMAT_STEPS steps each: launches, step time (the median of LM_REPS
+    chains of REMAT_STEPS), tokens/s and peak memory;
     the first 3 losses against remat off's on the card, and a small LM's
     card against the CPU port's. Returns each mode's launches."""
     from minips_tpu_torch import interop
@@ -1045,10 +1046,13 @@ def remat_phase(torch, dev, card, tfa) -> dict:
         diff = max(abs(a - b) for a, b in zip(losses[:3], base[:3]))
         check(diff <= REMAT_LOSS_TOL, f"remat {mode!r}: first losses "
               f"{losses[:3]} differ from remat off's {base[:3]} by {diff}")
-        chain = chain_seconds(torch, lambda: run_lm_steps(lm, REMAT_STEPS))
+        chains = [chain_seconds(torch, lambda: run_lm_steps(lm, REMAT_STEPS))
+                  for _ in range(LM_REPS)]
+        chain = statistics.median(chains)
         paths[str(mode)] = launches
         rows[str(mode)] = {
             "card": card, "remat": mode, "steps": REMAT_STEPS,
+            "reps": LM_REPS, "chain_s": chains,
             "step_ms": 1e3 * chain / REMAT_STEPS,
             "tokens_per_s": LM_B * LM_T * REMAT_STEPS / chain,
             "peak_mem_gb": peak, "grad_peak_gb": grad_peak_gb(torch, lm),
