@@ -14,7 +14,8 @@ at full width (B = 65536, 13 dense and 26 categorical fields, tables of
 width 2048, 32 heads of 64, vocab 2^14, B = 16, T = 1024, bf16 compute,
 Adam, flash attention, head chunks of 128, remat in mode ``"dots"``), and
 the rest of the LM family: every remat mode, ``apps/lm_example.py``,
-KV-cached decoding and the one-device MoE LM. Phases, each of which
+KV-cached decoding and the one-device MoE LM, and the app's sequence,
+tensor, pipeline and expert-parallel layouts. Phases, each of which
 raises on failure:
 
 1. device: requires CUDA; prints the card's name and power limit;
@@ -151,7 +152,26 @@ raises on failure:
     depth 8, 32 heads, 8 experts of hidden 256, B 4, T 1024, capacity
     twice the even share, top-1 and top-2: finite forward and backward and
     their time, the routes kept; a binding capacity drops routes; a small
-    MoE LM's logits and aux against the CPU port's within 1e-3.
+    MoE LM's logits and aux against the CPU port's within 1e-3;
+21. the ring of sequence parallelism at n = 4 on one card: the LM's
+    attention at full width (B 16, T 1024 in 4 shards of 256, 32 heads of
+    64, bf16; then GQA kv 8), each rank's Q shard driven through
+    ``ops/flash_attention.py``'s ``ring_step`` against the 4 source shards
+    at the ring's global offsets, forward and backward: K2, K3 and K4
+    launched 4 times per rank; the merged output and the gradients within
+    phase 7's bf16 bound of ``flash_attention`` over the whole sequence;
+    the ring's time beside the whole sequence's;
+22. ``apps/lm_example.py``'s ``--layout sp`` at width 2048, depth 8, 32
+    heads, T 1024, B 16, bf16, ``--attn flash`` (the ring) and
+    ``a2a_flash``, beside ``--layout dp --attn flash``, 8 iterations each,
+    in one rank spawned on an NCCL group of world size 1: K2-K4 once per
+    block per step (a ring of one is one step), tokens/s, peak memory, the
+    first 3 sp losses within 2e-3 of dp's;
+23. in the same rank, ``--layout tp``, ``pp`` (4 microbatches) and ``ep``
+    (8 experts of hidden 256) at width 2048, depth 8, T 1024, B 4 with
+    plain attention, 5 iterations each: step time, tokens/s, peak memory,
+    the first loss within 2e-3 of the one-device ``apply`` (for ep
+    ``apply_moe_dense``) on the same weights and batch.
 
 The last two lines are a JSON object with every kernel's numbers (its
 launches on each path beside them) and then ``{"ok": true, "device":
@@ -302,6 +322,18 @@ DEC_ORACLE_STEPS = 16
 # phase 20: the MoE LM at init_moe_lm's and lm_example --experts' defaults
 MOE_B, MOE_EXPERTS, MOE_HIDDEN, MOE_REPS = 4, 8, 256, 3
 MOE_SMALL_TOL = 1e-3
+# phase 21: an n-way ring's per-step kernel work on one card, the LM's
+# attention at full width (B 16, T 1024 in RING_N shards, 32 heads of 64,
+# bf16), MHA and GQA kv 8; held to phase 7's bf16 bound against flash
+# attention over the whole sequence
+RING_N, RING_GQA_KV = 4, 8
+# phases 22-23: lm_example's parallel layouts at full width, in one rank
+# spawned on an NCCL group of world size 1; |first losses(sp) - (dp)|
+# (the same kernels: at n = 1 the ring is one step and its merge the
+# identity) and |first loss - the one-device apply's| for tp, pp and ep
+SP_ITERS = 8
+PAR_B, PAR_ITERS, PAR_MICRO = 4, 5, 4
+PAR_LOSS_TOL = 2e-3
 
 
 def check(cond: bool, msg: str) -> None:
@@ -1270,6 +1302,296 @@ def moe_phase(torch, dev, card) -> None:
           + json.dumps(rows), flush=True)
 
 
+# the bf16 flash kernels as the profiler names them on the card
+FLASH_WGMMA = ("flash_fwd_wgmma_kernel", "flash_bwd_dq_wgmma_kernel",
+               "flash_bwd_dkv_wgmma_kernel")
+
+
+def flash_kernels_seen(torch, run) -> dict:
+    """Calls of each flash kernel that the profiler saw on the card over
+    ``run()``, by kernel name. The profiler can drop a region's first
+    kernel events (13 and 15 of the 16 K2 launches opening the ring's
+    region in two runs); small kernels queued first take most of that
+    loss, and the launch counters hold the exact counts."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        warm = torch.zeros(1, device="cuda")
+        for _ in range(16):
+            warm.add_(1)
+        torch.cuda.synchronize()
+        run()
+        torch.cuda.synchronize()
+    seen: dict = {}
+    for e in prof.events():
+        m = re.search(r"flash_\w+_kernel", e.name)
+        if e.device_type == torch.autograd.DeviceType.CUDA and m:
+            seen[m.group(0)] = seen.get(m.group(0), 0) + 1
+    return seen
+
+
+def ring_phase(torch, dev, card, tfa) -> dict:
+    """Phase 21: the RING_N steps of an RING_N-way ring driven through
+    ``ring_step`` on one card, for each rank's Q shard against every
+    source shard at the ring's global offsets, forward and backward: K2,
+    K3 and K4 launched RING_N times per rank; the merged output and the
+    gradients of q, k and v within phase 7's bf16 bound of
+    ``flash_attention`` over the whole sequence; the ring's time (all
+    ranks in turn) beside the whole sequence's. Returns the launches per
+    rank and the rows printed."""
+    flash = ("flash_forward", "flash_bwd_dq", "flash_bwd_dkv")
+    H, D, t = LM_DIM // 64, 64, LM_T // RING_N
+    bf16 = torch.bfloat16
+    rows, per_rank = {}, None
+    for label, hk in (("mha", H), (f"gqa_kv{RING_GQA_KV}", RING_GQA_KV)):
+        gen = torch.Generator(device=dev).manual_seed(21)
+
+        def rnd(*shape):
+            return torch.randn(shape, device=dev, generator=gen).to(bf16)
+
+        q = rnd(LM_B, LM_T, H, D).requires_grad_(True)
+        k = rnd(LM_B, LM_T, hk, D).requires_grad_(True)
+        v = rnd(LM_B, LM_T, hk, D).requires_grad_(True)
+        dout = rnd(LM_B, LM_T, H, D)
+
+        def whole():
+            out = tfa.flash_attention(q, k, v, causal=True)
+            return out, torch.autograd.grad(out, (q, k, v), dout)
+
+        def ring(r):
+            acc = lse = None
+            q_r = q[:, r * t:(r + 1) * t]
+            for step in range(RING_N):
+                src = (r - step) % RING_N
+                acc, lse = tfa.ring_step(
+                    q_r, k[:, src * t:(src + 1) * t],
+                    v[:, src * t:(src + 1) * t], r * t, src * t, acc, lse,
+                    causal=True)
+            out = acc.to(bf16)
+            return out, torch.autograd.grad(out, (q, k, v),
+                                            dout[:, r * t:(r + 1) * t])
+
+        want, want_g = whole()
+        outs, grads, launches = [], [torch.zeros_like(x, dtype=torch.float32)
+                                     for x in (q, k, v)], []
+        for r in range(RING_N):
+            torch.cuda.synchronize()
+            for name in flash:
+                getattr(tfa, name).launches = 0
+            out, g = ring(r)
+            torch.cuda.synchronize()
+            launches.append({n: getattr(tfa, n).launches for n in flash})
+            check(launches[-1] == {n: RING_N for n in flash},
+                  f"ring {label} rank {r}: launches {launches[-1]}, "
+                  f"expected {RING_N} of each kernel")
+            outs.append(out.detach())
+            for total, gi in zip(grads, g):
+                total += gi.float()
+        errs = {}
+        for key, got, ref in zip(("out", "dq", "dk", "dv"),
+                                 [torch.cat(outs, dim=1)] + grads,
+                                 (want,) + want_g):
+            ref = ref.detach().float()
+            errs[key] = float((got.float() - ref).abs().max()) / max(
+                1.0, float(ref.abs().max()))
+            check(errs[key] <= FLASH_TOL["bfloat16"],
+                  f"ring {label}: {key} differs from whole-sequence flash "
+                  f"by {errs[key]} of its largest value")
+        ring_s = statistics.median(chain_seconds(torch, lambda: [
+            ring(r) for r in range(RING_N)]) for _ in range(3))
+        whole_s = statistics.median(chain_seconds(torch, whole)
+                                    for _ in range(3))
+        seen = flash_kernels_seen(torch, lambda: [ring(r)
+                                                  for r in range(RING_N)])
+        check(all(seen.get(k) for k in FLASH_WGMMA),
+              f"ring {label}: the profiler saw flash kernels {seen}, "
+              f"expected each of {FLASH_WGMMA}")
+        per_rank = launches[0]
+        rows[label] = {"card": card, "n": RING_N, "B": LM_B, "T": LM_T,
+                       "shard": t, "heads": H, "kv_heads": hk,
+                       "launches_per_rank": launches[0],
+                       "err_over_largest": errs,
+                       "bound": FLASH_TOL["bfloat16"],
+                       "ring_fwd_bwd_ms_all_ranks": 1e3 * ring_s,
+                       "whole_fwd_bwd_ms": 1e3 * whole_s,
+                       "profiler_kernels_all_ranks": seen,
+                       "ring_device": device_time(
+                           torch, lambda: [ring(r) for r in range(RING_N)],
+                           1, 1e3 * ring_s)}
+        print(f"ring of {RING_N} on one card, {label} (phase 21): "
+              + json.dumps(rows[label]), flush=True)
+        del q, k, v, dout, want, want_g, outs, grads
+    return per_rank
+
+
+def parallel_phases(group, dev, cfg) -> dict:
+    """Phases 22 and 23 on every rank of an NCCL group of n ranks, one card
+    each (n = 1 in the default run): ``lm_example``'s layouts at full
+    width. 22: ``--layout dp`` and ``sp`` (ring flash and a2a_flash) at B
+    LM_B, the first 3 sp losses within PAR_LOSS_TOL of dp's, K2-K4 n
+    times per block per step on the ring (once on dp and a2a_flash). 23:
+    tp (a 2-way model axis where n is even), pp (n stages, PAR_MICRO
+    microbatches) and ep (MOE_EXPERTS experts over the n ranks; at n > 1
+    a capacity that drops no route) at B PAR_B with plain attention: the
+    first loss within PAR_LOSS_TOL of the one-device ``apply``
+    (``apply_moe_dense`` for ep) on the same weights and batch. Step time,
+    tokens/s, peak memory. Rank 0 prints; returns the rows and each
+    path's launches."""
+    import argparse
+
+    import torch
+
+    from minips_tpu_torch.apps import lm_example as lmx
+    from minips_tpu_torch.core import config as tcfg
+    from minips_tpu_torch.data.loader import BatchIterator
+    from minips_tpu_torch.models import transformer as tfm
+    from minips_tpu_torch.ops import flash_attention as tfa
+    from minips_tpu_torch.parallel.mesh import world
+    from minips_tpu_torch.utils.metrics import MetricsLogger
+
+    rank, n = world(group)
+    where = ("an NCCL group of one" if n == 1
+             else f"an NCCL group of {n} cards")
+    flash = ("flash_forward", "flash_bwd_dq", "flash_bwd_dkv")
+    width = dict(dim=cfg["dim"], depth=cfg["depth"], heads=cfg["heads"],
+                 seq_len=cfg["t"])
+
+    def app(batch, iters, **flags):
+        conf = tcfg.Config(
+            table=tcfg.TableConfig(name="lm", kind="dense", updater="adam",
+                                   lr=APP_LM_LR),
+            train=tcfg.TrainConfig(batch_size=batch, num_iters=iters,
+                                   log_every=0, seed=0))
+        args = argparse.Namespace(device=dev, **width, **flags)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        for name in flash:
+            getattr(tfa, name).launches = 0
+        out = lmx.run(conf, args, MetricsLogger(None, verbose=False), group)
+        torch.cuda.synchronize()
+        losses = out["losses"]
+        check(len(losses) == iters and all(math.isfinite(x) for x in losses),
+              f"lm_example {flags}: losses {losses}")
+        row = {"card": cfg["card"], "flags": {**width, **flags},
+               "batch": batch, "iters": iters,
+               "step_ms": 1e3 * batch / out["samples_per_sec"],
+               "tokens_per_s": out["samples_per_sec"] * cfg["t"],
+               "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+               "launches": {n: getattr(tfa, n).launches for n in flash},
+               "first_losses": losses[:3]}
+        return conf, args, row
+
+    rows, paths = {}, {}
+    # ----------------------- 22. dp against sp at full width, flash attn
+    for name, flags in (("dp_flash", dict(layout="dp", attn="flash")),
+                        ("sp_flash", dict(layout="sp", attn="flash")),
+                        ("sp_a2a_flash", dict(layout="sp",
+                                              attn="a2a_flash"))):
+        _, _, row = app(cfg["b"], SP_ITERS, dtype="bfloat16", **flags)
+        steps = n if name == "sp_flash" else 1  # ring steps per block
+        want = {k: steps * cfg["depth"] * SP_ITERS for k in flash}
+        check(row["launches"] == want, f"lm_example {name}: flash launches "
+              f"{row['launches']}, expected {want}")
+        row["launches_per_block_per_step"] = {
+            k: v / (cfg["depth"] * SP_ITERS)
+            for k, v in row["launches"].items()}
+        if name != "dp_flash":
+            # the profiler's kernel names over 3 more steps of the path
+            seen = flash_kernels_seen(torch, lambda: app(
+                cfg["b"], 3, dtype="bfloat16", **flags))
+            check(all(seen.get(k) for k in FLASH_WGMMA),
+                  f"lm_example {name}: the profiler saw flash kernels "
+                  f"{seen}, expected each of {FLASH_WGMMA}")
+            row["profiler_kernels_3_steps"] = seen
+            diff = max(abs(a - b) for a, b in zip(
+                row["first_losses"], rows["dp_flash"]["first_losses"]))
+            check(diff <= PAR_LOSS_TOL, f"lm_example {name}: first losses "
+                  f"{row['first_losses']} differ from dp's by {diff}")
+            row["max_abs_diff_vs_dp"] = diff
+        rows[name], paths[name] = row, row["launches"]
+        if rank == 0:
+            print(f"lm_example {name} through {where} (phase 22): "
+                  + json.dumps(row), flush=True)
+    # -------------------- 23. tp, pp and ep at full width, plain attention
+    tokens = PAR_B * cfg["t"]
+    # per source rank at n > 1, every token of a rank fits any one expert
+    ep_cap = tokens // n if n > 1 else 0
+    for name, flags in (("tp", dict(layout="tp", tp=2 if n % 2 == 0 else 1)),
+                        ("pp", dict(layout="pp", tp=n,
+                                    microbatches=PAR_MICRO)),
+                        ("ep", dict(layout="ep", experts=MOE_EXPERTS,
+                                    capacity=ep_cap))):
+        conf, args, row = app(PAR_B, PAR_ITERS, **flags)
+        model = lmx._model_cfg(args, cfg["t"])
+        toks = torch.as_tensor(next(iter(BatchIterator(
+            lmx._load_data(conf, args, cfg["t"]), PAR_B, seed=0)))["tokens"],
+            device=dev).long()
+        with torch.no_grad():
+            if name == "ep":
+                cap = (tokens if n > 1
+                       else max(2 * tokens // MOE_EXPERTS, 4))
+                params = lmx._init_moe_params(0, model, MOE_EXPERTS, dev)
+                logits, aux = tfm.apply_moe_dense(
+                    params, toks[:, :-1], heads=cfg["heads"], capacity=cap)
+                ref = float(tfm.nll(logits, toks[:, 1:]) + 0.01 * aux)
+            else:
+                params = lmx._init_params(0, model, dev)
+                ref = float(tfm.nll(tfm.apply(params, toks[:, :-1],
+                                              heads=cfg["heads"]),
+                                    toks[:, 1:]))
+        del params
+        diff = abs(row["first_losses"][0] - ref)
+        check(diff <= PAR_LOSS_TOL, f"lm_example {name}: first loss "
+              f"{row['first_losses'][0]} differs from the one-device "
+              f"model's {ref} by {diff}")
+        row.update(one_device_first_loss=ref, max_abs_diff=diff)
+        rows[name], paths[name] = row, row["launches"]
+        if rank == 0:
+            print(f"lm_example {name} through {where} (phase 23): "
+                  + json.dumps(row), flush=True)
+    return {"rows": rows, "launches": paths}
+
+
+def multi_card_main(torch, n: int) -> int:
+    """``chip_smoke.py --ranks n``: phases 22-23 alone, on n cards of one
+    machine, one rank each through NCCL (the ring's rotations and the
+    layouts' collectives between cards): each layout's step time,
+    tokens/s and peak memory on rank 0, and its checks on every rank."""
+    from minips_tpu_torch.ops import _build
+    from minips_tpu_torch.parallel.mesh import run_ranks
+
+    check(torch.cuda.device_count() >= n, f"--ranks {n}: only "
+          f"{torch.cuda.device_count()} cards")
+    cards = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()
+    for line in cards[:n]:
+        print(f"card: {line}", flush=True)
+    t0 = time.perf_counter()
+    _build.build_all(["flash_attn"])
+    print(f"build: {time.perf_counter() - t0:.2f} s", flush=True)
+    t0 = time.perf_counter()
+    par = run_ranks(parallel_phases, n,
+                    {"card": " | ".join(sorted(set(cards[:n]))), "b": LM_B,
+                     "t": LM_T, "dim": LM_DIM, "depth": LM_DEPTH,
+                     "heads": LM_DIM // 64},
+                    timeout=GROUP_TIMEOUT_S,
+                    store_dir=os.path.join(REPO, "build",
+                                           "chip_smoke_store"))[0]
+    print(f"lm_example layouts on {n} cards, by layout [step ms, tokens/s "
+          f"of all cards, rank 0's peak GB] (phases 22-23, "
+          f"{time.perf_counter() - t0:.1f} s): " + json.dumps(
+              {k: [r["step_ms"], r["tokens_per_s"], r["peak_mem_gb"]]
+               for k, r in par["rows"].items()}), flush=True)
+    print(cards[0])
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
 def main() -> int:
     import torch
 
@@ -1279,6 +1601,9 @@ def main() -> int:
               "an NVIDIA card", file=sys.stderr)
         return 2
     sys.path.insert(0, REPO)
+    if "--ranks" in sys.argv:
+        return multi_card_main(
+            torch, int(sys.argv[sys.argv.index("--ranks") + 1]))
     import numpy as np
 
     import argparse
@@ -2244,8 +2569,28 @@ def main() -> int:
     t0 = time.perf_counter()
     moe_phase(torch, dev, card)
     phase_s["20"] = time.perf_counter() - t0
+    # -------------------------------- 21. a 4-way ring's steps on one card
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    ring_launches = ring_phase(torch, dev, card, tfa)
+    phase_s["21"] = time.perf_counter() - t0
+    # ---------- 22-23. lm_example's sp, tp, pp and ep through a group of one
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    par = run_ranks(parallel_phases, 1,
+                    {"card": card, "b": LM_B, "t": LM_T, "dim": LM_DIM,
+                     "depth": LM_DEPTH, "heads": LM_DIM // 64},
+                    timeout=GROUP_TIMEOUT_S,
+                    store_dir=os.path.join(REPO, "build",
+                                           "chip_smoke_store"))[0]
+    phase_s["22-23"] = time.perf_counter() - t0
+    print("lm_example layouts through an NCCL group of one, by layout "
+          "[step ms, tokens/s, peak GB] (phases 22-23): " + json.dumps(
+              {k: [r["step_ms"], r["tokens_per_s"], r["peak_mem_gb"]]
+               for k, r in par["rows"].items()}), flush=True)
     print("LM decoding (phase 19): " + json.dumps(decoding), flush=True)
-    print("seconds taken by phases 17-20: " + json.dumps(phase_s),
+    print("seconds taken by phases 17-23: " + json.dumps(phase_s),
           flush=True)
 
     kernels[0]["launches_by_path"] = dict(
@@ -2263,6 +2608,11 @@ def main() -> int:
         k["launches_by_path"].update({
             f"lm_example_{name}": v[k["name"]]
             for name, v in app_paths.items()})
+        k["launches_by_path"][f"ring{RING_N}_per_rank"] = \
+            ring_launches[k["name"]]
+        k["launches_by_path"].update({
+            f"lm_example_{name}_group_ws1": par["launches"][name][k["name"]]
+            for name in ("dp_flash", "sp_flash", "sp_a2a_flash")})
 
     print(f"card: {card}")
     print(json.dumps({"kernels": kernels}))

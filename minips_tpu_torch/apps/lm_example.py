@@ -1,8 +1,35 @@
 """lm_example — the decoder-only LM app, the port of
-``minips_tpu/apps/lm_example.py`` in its ``--layout dp`` (the default):
-the whole LM in one ``DenseTable``, trained by its fused step on the
-device (``--device``, the card by default) with every flag of the JAX
-app's dp path:
+``minips_tpu/apps/lm_example.py``. Layouts:
+
+- ``--layout dp`` (the default): the whole LM in one ``DenseTable``,
+  trained by its fused step on the device (``--device``, the card by
+  default);
+- ``--layout sp``: the batch replicated, the SEQUENCE sharded over the
+  ranks: ring attention (``--attn reference|flash``: K2 on every ring
+  step on the card) or all-to-all (``--attn a2a|a2a_flash``, heads
+  divisible by the ranks), positions at each shard's global offset,
+  through the same ``DenseTable`` fused step over the group;
+- ``--layout tp``: a (data x model) mesh of ranks, ``--tp`` the model
+  axis: the batch sharded over data, the block weights Megatron-cut over
+  model;
+- ``--layout pp``: the same mesh, the blocks GPipe-pipelined over model
+  (``--tp`` stages, ``--microbatches`` in flight);
+- ``--layout ep``: the MoE LM, the batch and the experts sharded over the
+  ranks (``--experts``, ``--k_top``, ``--capacity`` per expert per source
+  rank).
+
+tp, pp and ep train each rank's shards with the port's own Adam
+(``tables/updaters.py``) at ``--lr``, as the JAX app's tail trains with
+``optax.adam``; after the backward each leaf's gradient is summed over
+the ranks that hold it replicated while their batches differ (the data
+axis), as shard_map's transpose sums it, and the loss is the data mean.
+``run(cfg, args, metrics, group)`` runs one rank of a layout on a
+``torch.distributed`` group (the default group, which ``make_groups``
+splits for tp and pp; ``None`` is one device); the CLI spawns one rank
+per visible card (``--ranks``; with ``--device cpu``, gloo ranks on the
+CPU) through ``parallel/mesh.py:run_ranks`` and prints rank 0's metrics.
+
+The dp path has every flag of the JAX app's:
 
 - ``--attn reference|flash`` (K2–K4 on the card), ``--accum``,
   ``--dtype`` (worker-math precision), ``--comm`` (the step's wire
@@ -20,14 +47,17 @@ app's dp path:
 - ``--generate N`` (``--temperature``): after training, decode N tokens
   through the KV cache (``models/decode.py``) at the training precision.
 
-The JAX app's refusals are kept flag by flag. ``--layout sp|tp|pp|ep``
-(sequence, tensor, pipeline and expert parallelism) raise
-``NotImplementedError``: they wait for ROADMAP.md queue 1 item 13.
+The JAX app's refusals are kept flag by flag. One more: under a group
+of more than one rank, ``--checkpoint_dir`` is refused (every rank would
+write the same global state; sharded checkpoint writes are ROADMAP.md
+queue 1 item 10's).
 
 Usage: python -m minips_tpu_torch.apps.lm_example --num_iters 200
        python -m minips_tpu_torch.apps.lm_example --device cpu \\
            --num_iters 20 --remat --remat_mode dots --dropout 0.1 \\
            --generate 16
+       python -m minips_tpu_torch.apps.lm_example --device cpu --ranks 2 \\
+           --layout sp --attn flash --num_iters 20
 """
 
 from __future__ import annotations
@@ -41,10 +71,16 @@ from minips_tpu_torch.core.config import Config, TableConfig, TrainConfig
 from minips_tpu_torch.data import synthetic
 from minips_tpu_torch.data.loader import BatchIterator
 from minips_tpu_torch.models import transformer as tfm
-from minips_tpu_torch.parallel.mesh import resolve_device
-from minips_tpu_torch.tables.dense import DenseTable
-from minips_tpu_torch.tables.updaters import warmup_cosine_decay_schedule
+from minips_tpu_torch.parallel.mesh import (Group, all_reduce_sum,
+                                            axis_index, make_groups, pmean,
+                                            resolve_device, run_ranks, world)
+from minips_tpu_torch.parallel.partition import shard_params
+from minips_tpu_torch.tables.dense import DenseTable, ravel
+from minips_tpu_torch.tables.updaters import (make_updater,
+                                              warmup_cosine_decay_schedule)
 from minips_tpu_torch.train.loop import TrainLoop
+from minips_tpu_torch.utils.metrics import MetricsLogger
+from minips_tpu_torch.utils.tree import tree_leaves, tree_rebuild
 
 DEFAULT = Config(
     table=TableConfig(name="lm", kind="dense", updater="adam", lr=3e-3),
@@ -54,21 +90,29 @@ DEFAULT = Config(
 MODEL = dict(vocab=256, dim=64, heads=4, depth=2, max_len=1024)
 # the dropout keys' seed offset from --seed, as in the JAX app
 DROPOUT_SEED_OFFSET = 71
+# the spawned ranks of a CLI run: a training run may take days
+CLI_TIMEOUT_S = 7 * 24 * 3600.0
 
 
 def _flags(parser):
     parser.add_argument("--layout", default="dp",
                         choices=["dp", "sp", "tp", "pp", "ep"],
-                        help="dp: the batch on one device's fused step; "
-                             "sp, tp, pp, ep (sequence, tensor, pipeline, "
-                             "expert parallel) are not ported yet")
+                        help="dp: batch sharded; sp: sequence sharded "
+                             "(ring or all-to-all attention); tp: Megatron "
+                             "tensor parallel; pp: GPipe pipeline; ep: "
+                             "MoE-LM with experts sharded over the ranks")
+    parser.add_argument("--ranks", type=int, default=0,
+                        help="sp/tp/pp/ep: processes to spawn, one device "
+                             "each (0: one per visible card; 1 with "
+                             "--device cpu)")
     parser.add_argument("--experts", type=int, default=8,
-                        help="ep layout: number of experts")
+                        help="ep layout: number of experts (must divide "
+                             "by the rank count)")
     parser.add_argument("--k_top", type=int, default=1,
                         help="ep layout: experts per token")
     parser.add_argument("--capacity", type=int, default=0,
-                        help="ep layout: slots per expert (0 = 2x the "
-                             "even share)")
+                        help="ep layout: slots per expert per source "
+                             "rank (0 = 2x the even share)")
     parser.add_argument("--seq_len", type=int, default=128)
     parser.add_argument("--tp", type=int, default=2,
                         help="model-axis size for tp/pp layouts")
@@ -97,8 +141,10 @@ def _flags(parser):
     parser.add_argument("--attn", default="reference",
                         choices=["reference", "flash", "a2a", "a2a_flash"],
                         help="reference: plain scores; flash: the fused "
-                             "kernels (K2-K4 on the card); a2a and "
-                             "a2a_flash are sequence-parallel (sp) only")
+                             "kernels (K2-K4 on the card; on sp, ring "
+                             "flash attention); a2a and a2a_flash: "
+                             "all-to-all sequence parallelism (sp only; "
+                             "heads %% ranks == 0)")
     parser.add_argument("--accum", type=int, default=1,
                         help="gradient-accumulation microbatches per step")
     parser.add_argument("--dim", type=int, default=None,
@@ -178,6 +224,17 @@ def _init_params(seed: int, model: dict, device) -> dict:
     return tfm.init(gen, device=device, **model)
 
 
+def _init_moe_params(seed: int, model: dict, experts: int, device) -> dict:
+    """The initial MoE LM of the ep layout (``init_moe_lm``'s expert
+    hidden), drawn from ``seed`` on ``device``. Tests replace it."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return tfm.init_moe_lm(gen, vocab=model["vocab"], dim=model["dim"],
+                           heads=model["heads"], depth=model["depth"],
+                           max_len=model["max_len"], num_experts=experts,
+                           kv_heads=model.get("kv_heads"),
+                           rope=model.get("rope", False), device=device)
+
+
 def _lr_schedule(cfg, args):
     """--warmup_steps > 0: linear warm-up, then cosine decay to 10% of the
     peak over the run; else the constant --lr."""
@@ -206,8 +263,7 @@ def _updater_kwargs(cfg, args, params) -> dict:
 
 
 def _refuse(cfg, args, layout: str) -> None:
-    """The JAX app's refusals of flags that its layout does not wire, then
-    the layouts not ported yet."""
+    """The JAX app's refusals of flags that its layout does not wire."""
     if (getattr(args, "attn", "reference") in ("a2a", "a2a_flash")
             and layout != "sp"):
         raise SystemExit("--attn a2a/a2a_flash is sequence parallelism: "
@@ -228,25 +284,39 @@ def _refuse(cfg, args, layout: str) -> None:
         if layout != "dp" and getattr(args, flag, default):
             raise SystemExit(f"--{flag} is only wired into --layout dp "
                              f"(got {layout})")
-    if layout != "dp":
-        raise NotImplementedError(
-            f"--layout {layout} is not ported yet (ROADMAP.md queue 1 item "
-            "13: sequence, tensor, pipeline and expert parallelism over "
-            "torch.distributed); use --layout dp")
 
 
-def run(cfg: Config, args, metrics) -> dict:
+def run(cfg: Config, args, metrics, group: Group = None) -> dict:
+    """One rank of a training run. ``group`` is the default process group
+    of the run's ranks, or None for one device; every rank calls ``run``
+    with the same ``cfg`` and ``args``."""
     seq_len = getattr(args, "seq_len", 128)
     layout = getattr(args, "layout", "dp")
     _refuse(cfg, args, layout)
     device = resolve_device(getattr(args, "device", None))
+    if layout in ("tp", "pp"):
+        return _run_model_parallel(cfg, args, metrics, layout, seq_len,
+                                   device, group)
+    if layout == "ep":
+        return _run_ep(cfg, args, metrics, seq_len, device, group)
+    rank, n_shards = world(group)
+    if layout == "sp" and seq_len % n_shards:
+        raise SystemExit(f"--seq_len {seq_len} must divide by the "
+                         f"{n_shards}-way group")
+    if layout == "dp" and cfg.train.batch_size % n_shards:
+        raise SystemExit(f"--batch_size {cfg.train.batch_size} must divide "
+                         f"by the {n_shards}-way group")
+    if n_shards > 1 and (getattr(cfg.train, "checkpoint_dir", None)
+                         or getattr(args, "checkpoint_dir", None)):
+        raise SystemExit("--checkpoint_dir runs on one rank: every rank "
+                         "would write the same global state")
     model = _model_cfg(args, seq_len)
     data = _load_data(cfg, args, seq_len)
     params = _init_params(cfg.train.seed, model, device)
     table = DenseTable(params, updater=cfg.table.updater,
                        lr=_lr_schedule(cfg, args), name=cfg.table.name,
                        updater_kwargs=_updater_kwargs(cfg, args, params),
-                       device=device)
+                       device=device, group=group)
     del params  # the table holds the only copy
     heads = model["heads"]
     ckpt, start_step = _maybe_checkpointer(cfg, args, table)
@@ -262,27 +332,43 @@ def run(cfg: Config, args, metrics) -> dict:
     remat = getattr(args, "remat", False)
     if remat and getattr(args, "remat_mode", "full") != "full":
         remat = args.remat_mode
-    step = table.make_step(
-        functools.partial(tfm.grad_fn, heads=heads,
-                          attn_impl=getattr(args, "attn", "reference"),
-                          remat=remat,
-                          head_chunk=getattr(args, "head_chunk", 0),
-                          dropout=dropout),
-        accum=getattr(args, "accum", 1), compute_dtype=compute_dtype,
-        comm=getattr(args, "comm", "float32"))
-    drop_key = tfm.prng_key(cfg.train.seed + DROPOUT_SEED_OFFSET)
-    n_prepped = [start_step]
+    step_kw = dict(accum=getattr(args, "accum", 1),
+                   compute_dtype=compute_dtype,
+                   comm=getattr(args, "comm", "float32"))
+    if layout == "sp":
+        # every rank holds the whole batch and its slice of the sequence;
+        # the ring (or the all-to-all) stitches the slices together
+        sp_grad, shard_batch = tfm.sp_train_wiring(
+            heads, seq_len // n_shards, group,
+            attn_impl=getattr(args, "attn", "reference"))
+        step = table.make_step(sp_grad, **step_kw)
 
-    def prep(batch):
-        out = {"tokens": torch.as_tensor(batch["tokens"], device=device)}
-        if dropout:
-            # a fresh key per (resume-offset) step, then one per worker (a
-            # world of one here); the keys stay on the host
-            step_key = tfm.fold_in(drop_key, n_prepped[0])
-            n_prepped[0] += 1
-            out["rng"] = torch.tensor([tfm.fold_in(step_key, 0)],
-                                      dtype=torch.int64)
-        return out
+        def prep(batch):
+            return shard_batch(torch.as_tensor(batch["tokens"],
+                                               device=device))
+    else:
+        step = table.make_step(
+            functools.partial(tfm.grad_fn, heads=heads,
+                              attn_impl=getattr(args, "attn", "reference"),
+                              remat=remat,
+                              head_chunk=getattr(args, "head_chunk", 0),
+                              dropout=dropout), **step_kw)
+        drop_key = tfm.prng_key(cfg.train.seed + DROPOUT_SEED_OFFSET)
+        n_prepped = [start_step]
+        rows = cfg.train.batch_size // n_shards
+
+        def prep(batch):
+            out = {"tokens": torch.as_tensor(
+                batch["tokens"][rank * rows:(rank + 1) * rows],
+                device=device)}
+            if dropout:
+                # a fresh key per (resume-offset) step, then one per
+                # worker; the keys stay on the host
+                step_key = tfm.fold_in(drop_key, n_prepped[0])
+                n_prepped[0] += 1
+                out["rng"] = torch.tensor([tfm.fold_in(step_key, rank)],
+                                          dtype=torch.int64)
+            return out
 
     # TrainLoop fast-forwards the iterator to step_offset, so a resumed run
     # continues the stream instead of replaying it
@@ -357,8 +443,171 @@ def _maybe_checkpointer(cfg, args, table):
     return ckpt, start
 
 
+def _sum_grads(grads, summed, group):
+    """Each gradient whose ``summed`` flag is set, summed over ``group``
+    (the ranks holding that leaf replicated with other batches)."""
+    if world(group)[1] == 1:
+        return grads
+    return [all_reduce_sum(g, group) if s else g
+            for g, s in zip(grads, summed)]
+
+
+def _adam_train(cfg, args, metrics, params, loss_fn, summed, data_group,
+                seq_len, layout, device, **log_fields) -> dict:
+    """The shared tail of tp, pp and ep: the port's Adam at ``--lr`` on
+    this rank's shards of ``params`` (one flat vector), the gradient of
+    ``loss_fn(params, tokens)`` on this rank's rows of each batch, each
+    leaf flagged in ``summed`` summed over ``data_group`` first;
+    TrainLoop and the metrics."""
+    d, n_data = world(data_group)
+    flat, unravel = ravel(params, device)
+    del params
+    tx = make_updater("adam", cfg.table.lr)
+    state = {"flat": flat, "opt": tx.init(flat)}
+    rows = cfg.train.batch_size // n_data
+
+    def do_step(batch):
+        toks = torch.as_tensor(batch["tokens"][d * rows:(d + 1) * rows],
+                               device=device).long()
+        tree = unravel(state["flat"])
+        leaves = [x.detach().requires_grad_(True) for x in tree_leaves(tree)]
+        loss = loss_fn(tree_rebuild(tree, iter(leaves)), toks)
+        grads = torch.autograd.grad(loss, leaves, materialize_grads=True)
+        g, _ = ravel(_sum_grads(grads, summed, data_group), device)
+        updates, state["opt"] = tx.update(g, state["opt"], state["flat"])
+        state["flat"] = state["flat"] + updates
+        return loss.detach()
+
+    data = _load_data(cfg, args, seq_len)
+    batches = BatchIterator(data, cfg.train.batch_size, seed=cfg.train.seed)
+    loop = TrainLoop(do_step, batches, metrics=metrics,
+                     log_every=cfg.train.log_every,
+                     batch_size=cfg.train.batch_size)
+    losses = loop.run(cfg.train.num_iters)
+    metrics.log(final_loss=losses[-1], layout=layout, seq_len=seq_len,
+                tokens_per_sec=loop.timer.samples_per_sec * seq_len,
+                **log_fields)
+    return {"losses": losses, "params": unravel(state["flat"]),
+            "layout": layout, "samples_per_sec": loop.timer.samples_per_sec}
+
+
+def _run_model_parallel(cfg, args, metrics, layout, seq_len, device,
+                        group) -> dict:
+    """tp and pp: a (data x model) mesh of the ranks, weights and the
+    optimizer state sharded over model."""
+    from minips_tpu_torch.parallel.pipeline import stack_layers
+
+    tp_size = getattr(args, "tp", 2)
+    micro = getattr(args, "microbatches", 4)
+    n_dev = world(group)[1]
+    if n_dev % tp_size:
+        raise SystemExit(f"--tp {tp_size} must divide {n_dev} devices")
+    model = _model_cfg(args, seq_len)
+    heads = model["heads"]
+    if layout == "tp" and heads % tp_size:
+        raise SystemExit(f"--tp {tp_size} must divide heads {heads}")
+    if layout == "pp" and model["depth"] % tp_size:
+        raise SystemExit(f"--tp {tp_size} must divide depth "
+                         f"{model['depth']} (pipeline stages)")
+    data_shards = n_dev // tp_size
+    if cfg.train.batch_size % data_shards:
+        raise SystemExit(f"--batch_size {cfg.train.batch_size} must divide "
+                         f"by the {data_shards}-way data axis")
+    local_b = cfg.train.batch_size // data_shards
+    if layout == "pp" and local_b % micro:
+        raise SystemExit(
+            f"--microbatches {micro} must divide the per-device batch "
+            f"{local_b} (= --batch_size {cfg.train.batch_size} / "
+            f"{data_shards} data shards)")
+    # the (data, model) groups of the run's ranks; one device has none
+    data_group, model_group = ((None, None) if group is None
+                               else make_groups(data_shards, tp_size))
+    params = _init_params(cfg.train.seed, model, device)
+    if layout == "pp":
+        params = {**params, "blocks": stack_layers(params["blocks"])}
+        specs = tfm.pp_specs(params)
+    else:
+        specs = tfm.tp_specs(params)
+    params = shard_params(params, specs, axis_index(model_group), tp_size)
+
+    def loss_fn(p, toks):
+        if layout == "pp":
+            logits = tfm.apply_pp(p, toks[:, :-1], heads=heads,
+                                  group=model_group, num_microbatches=micro)
+        else:
+            logits = tfm.apply_tp(p, toks[:, :-1], heads=heads,
+                                  group=model_group)
+        return pmean(tfm.nll(logits, toks[:, 1:]), data_group)
+
+    # over the data axis every leaf is replicated and every batch differs
+    summed = [True] * len(tree_leaves(specs))
+    return _adam_train(cfg, args, metrics, params, loss_fn, summed,
+                       data_group, seq_len, layout, device, tp=tp_size)
+
+
+def _run_ep(cfg, args, metrics, seq_len, device, group) -> dict:
+    """ep: the MoE LM, the batch and the experts sharded over the ranks,
+    the tokens sent to their experts by two all-to-alls a block."""
+    rank, n_dev = world(group)
+    model = _model_cfg(args, seq_len)
+    heads = model["heads"]
+    experts = getattr(args, "experts", 8)
+    k_top = getattr(args, "k_top", 1)
+    if not 1 <= k_top <= experts:
+        raise SystemExit(f"--k_top {k_top} must be in [1, --experts "
+                         f"{experts}] (0 would disable every MoE FFN)")
+    if experts % n_dev:
+        raise SystemExit(f"--experts {experts} must divide by the "
+                         f"{n_dev}-way mesh")
+    if cfg.train.batch_size % n_dev:
+        raise SystemExit(f"--batch_size {cfg.train.batch_size} must "
+                         f"divide by the {n_dev}-way mesh")
+    local_tokens = (cfg.train.batch_size // n_dev) * seq_len
+    capacity = getattr(args, "capacity", 0) or max(
+        2 * k_top * local_tokens // experts, 4)
+    params = _init_moe_params(cfg.train.seed, model, experts, device)
+    specs = tfm.ep_lm_specs(params)
+    params = shard_params(params, specs, rank, n_dev)
+
+    def loss_fn(p, toks):
+        logits, aux = tfm.apply_ep(p, toks[:, :-1], heads=heads, group=group,
+                                   capacity=capacity, k_top=k_top)
+        # the router's load-balance pressure beside the data-mean loss
+        return pmean(tfm.nll(logits, toks[:, 1:]), group) + 0.01 * aux
+
+    # the experts are sharded over the data axis; the rest is replicated
+    summed = [dim is None for dim in tree_leaves(specs)]
+    return _adam_train(cfg, args, metrics, params, loss_fn, summed, group,
+                       seq_len, "ep", device, experts=experts, k_top=k_top,
+                       capacity=capacity)
+
+
+def _rank_run(group, device, cfg, args) -> dict:
+    """One spawned rank of a CLI run: rank 0 logs the metrics."""
+    rank = world(group)[0]
+    args.device = device
+    metrics = MetricsLogger(cfg.train.metrics_path if rank == 0 else None,
+                            verbose=rank == 0)
+    try:
+        out = run(cfg, args, metrics, group)
+    finally:
+        metrics.close()
+    return {"losses": out["losses"],
+            "samples_per_sec": out["samples_per_sec"]}
+
+
+def _run_cli(cfg, args, metrics) -> dict:
+    """dp runs here; sp, tp, pp and ep on ``--ranks`` spawned ranks."""
+    if getattr(args, "layout", "dp") == "dp":
+        return run(cfg, args, metrics)
+    cpu = resolve_device(getattr(args, "device", None)).type == "cpu"
+    n = args.ranks or (1 if cpu else torch.cuda.device_count())
+    return run_ranks(_rank_run, n, cfg, args, device="cpu" if cpu else None,
+                     timeout=CLI_TIMEOUT_S)[0]
+
+
 def main():
-    return app_main("lm_example", DEFAULT, run, extra_flags=_flags)
+    return app_main("lm_example", DEFAULT, _run_cli, extra_flags=_flags)
 
 
 if __name__ == "__main__":

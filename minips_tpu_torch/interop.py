@@ -21,6 +21,13 @@ returns bfloat16 leaves as uint16 bit patterns (compare them with
 ``np.asarray(leaf).view(np.uint16)``). This module imports neither JAX nor the JAX
 package: the caller does the ``jax.tree.leaves`` on its side.
 
+``shard_from_numpy`` carries a JAX params tree into a model-parallel
+layout: one rank's shard of every leaf per a spec tree of
+``models/transformer.py`` (``tp_specs``, ``pp_specs`` of the blocks stacked
+on either side by ``stack_layers``, ``ep_lm_specs``), the shard that the
+JAX array places on device (d, m) of its mesh for rank ``d·model_size +
+m``: pass ``m`` as the index for tp and pp, ``d`` for ep.
+
 Every array here is global, as the JAX table holds it. Into a table
 sharded over a process group, each rank loads the same global arrays and
 keeps its own range; out of one, the shards are gathered, a collective
@@ -35,6 +42,7 @@ import numpy as np
 import torch
 
 from minips_tpu_torch.parallel.mesh import DeviceLike, resolve_device
+from minips_tpu_torch.parallel.partition import shard_params
 from minips_tpu_torch.tables.dense import DenseTable
 from minips_tpu_torch.tables.sparse import SparseTable
 from minips_tpu_torch.utils.tree import tree_map
@@ -59,6 +67,17 @@ def tree_from_numpy(tree, device: DeviceLike = None):
     nesting carries: the MoE LM's ``blk["moe"]`` dicts too."""
     device = resolve_device(device)
     return tree_map(lambda x: torch.as_tensor(np.array(x)).to(device), tree)
+
+
+def shard_from_numpy(tree, specs, index: int, n: int,
+                     device: DeviceLike = None):
+    """Shard ``index`` of ``n`` of every leaf of a numpy params tree, cut
+    per ``specs`` (``parallel/partition.py:shard_params``) on the host and
+    moved to ``device``: only the shard reaches the device."""
+    device = resolve_device(device)
+    host = tree_map(lambda x: torch.as_tensor(np.array(x)), tree)
+    return tree_map(lambda x: x.contiguous().to(device),
+                    shard_params(host, specs, index, n))
 
 
 def load_dense(table: DenseTable, params, opt_leaves) -> None:

@@ -43,10 +43,27 @@ one; the key never leaves the host, so no step reads the card back for it.
 The refusals are the JAX package's: dropout with no key, a 2-D key stack
 that is not ``[W, 2]``; and a key on the card is refused too.
 
-Not ported here: the sequence-, tensor-, pipeline- and expert-parallel
-variants (``apply_sp``, ``sp_train_wiring``, ``loss_sp``, ``apply_tp``,
-``tp_specs``, ``apply_pp``, ``pp_specs``, ``apply_ep``, ``ep_lm_specs``),
-ROADMAP.md queue 1 item 13.
+**Parallel layouts** over ``torch.distributed`` groups (one process per
+device; each function is called by every rank of its group together):
+
+- ``apply_sp`` / ``loss_sp`` / ``sp_train_wiring``: sequence parallel, the
+  tokens sharded on T, attention a ring (``reference`` or ``flash``: K2
+  on every ring step, K3/K4 in its backward) or an all-to-all re-shard to
+  head groups (``a2a``, ``a2a_flash``);
+- ``apply_tp``: Megatron tensor parallel, the block weights cut per
+  ``tp_specs``, ``copy_to_group`` on the activation entering each
+  column-parallel matmul and ``reduce_from_group`` after each
+  row-parallel one (two all-reduces per block forward, two backward);
+- ``apply_pp``: GPipe over stacked blocks cut per ``pp_specs``;
+- ``apply_ep``: the MoE LM with its experts cut per ``ep_lm_specs``.
+
+A spec tree has the params' structure and, at each leaf, the dim that
+leaf is sharded on over its group, or None;
+``parallel/partition.py:shard_params`` cuts a rank's shard. Gradients are
+taken on each rank (see ``parallel/mesh.py`` on the collectives'
+backward): a leaf replicated over the data group, which shards the batch,
+holds this rank's share of its gradient, which the caller sums over that
+group.
 """
 
 from __future__ import annotations
@@ -63,9 +80,13 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts,
                                     noop_context_fn)
 
-from minips_tpu_torch.parallel.mesh import DeviceLike, resolve_device
+from minips_tpu_torch.parallel.mesh import (DeviceLike, Group,
+                                            copy_to_group, pmean,
+                                            reduce_from_group,
+                                            resolve_device, world)
 from minips_tpu_torch.parallel.ring_attention import reference_attention
-from minips_tpu_torch.utils.tree import tree_map, value_and_grad
+from minips_tpu_torch.utils.tree import (tree_leaves, tree_map,
+                                        value_and_grad)
 
 # K2, K3 and K4 launches per block per training step under each remat
 # mode: the pallas_call equations of each kernel in the JAX package's grad
@@ -259,11 +280,16 @@ def _remat_policy(remat):
 
 # ------------------------------------------------------------------- blocks
 def _block(h, blk, heads, attn_fn, compute_dtype, ffn_fn=None, dropout=0.0,
-           rng=None):
+           rng=None, group=None):
     """One pre-LN block: attention, then :func:`_block_tail`. Returns
-    ``(h, aux)``."""
+    ``(h, aux)``. With a model ``group`` the block is Megatron tensor
+    parallel: the q/k/v and MLP-in weights arrive cut on their output dim
+    (this rank computes heads/n heads and hidden/n units), the output
+    projection and MLP-out on their input dim, and the activations stay
+    replicated."""
     B, T, _ = h.shape
-    x = _ln(h, blk["ln1"]).to(compute_dtype)
+    local_heads = heads // world(group)[1]
+    x = copy_to_group(_ln(h, blk["ln1"]).to(compute_dtype), group)
     # q/k/v stay in compute_dtype: the kernels run their dots at the input
     # type with float32 sums
     if "wkv" in blk:
@@ -271,29 +297,32 @@ def _block(h, blk, heads, attn_fn, compute_dtype, ffn_fn=None, dropout=0.0,
         with _producing("qkv"):
             q = x @ wq
             kv = (x @ wkv.reshape(wkv.shape[0], -1)).view(B, T, 2, -1)
-        hd = q.shape[-1] // heads
-        q = q.view(B, T, heads, hd)
+        hd = q.shape[-1] // local_heads
+        q = q.view(B, T, local_heads, hd)
         k = kv[:, :, 0].reshape(B, T, -1, hd)
         v = kv[:, :, 1].reshape(B, T, -1, hd)
     else:
         w = blk["qkv"].to(compute_dtype)
         with _producing("qkv"):
             qkv = (x @ w.reshape(w.shape[0], -1)).view(B, T, 3, -1)
-        hd = qkv.shape[-1] // heads
-        q, k, v = (qkv[:, :, i].reshape(B, T, heads, hd) for i in range(3))
+        hd = qkv.shape[-1] // local_heads
+        q, k, v = (qkv[:, :, i].reshape(B, T, local_heads, hd)
+                   for i in range(3))
     a = attn_fn(q, k, v).reshape(B, T, -1)
-    return _block_tail(h, blk, a, compute_dtype, ffn_fn, dropout, rng)
+    return _block_tail(h, blk, a, compute_dtype, ffn_fn, dropout, rng, group)
 
 
 def _block_tail(h, blk, a, compute_dtype, ffn_fn=None, dropout=0.0,
-                rng=None):
+                rng=None, group=None):
     """Output projection + residual, then the MLP (or ``ffn_fn(blk, x_2d
     [B*T, D]) -> (y_2d, aux)``, the MoE layer) + residual; the residual
     stream turns float32 here. Shared by the training block and the
     KV-cached decode block (``models/decode.py``). Returns ``(h, aux)``, aux
-    0 for the dense MLP."""
+    0 for the dense MLP. A model ``group`` sums the two row-parallel
+    products over its ranks before each residual add."""
     a = checkpoint_name(a, "attn_out")
-    att = (a.to(compute_dtype) @ blk["proj"].to(compute_dtype)).float()
+    att = reduce_from_group(
+        (a.to(compute_dtype) @ blk["proj"].to(compute_dtype)).float(), group)
     if dropout and rng is not None:  # GPT-style residual dropout
         att = _dropout(att, dropout, fold_in(rng, 0))
     h = h + att
@@ -301,27 +330,32 @@ def _block_tail(h, blk, a, compute_dtype, ffn_fn=None, dropout=0.0,
         B, T, D = h.shape
         y, aux = ffn_fn(blk, _ln(h, blk["ln2"]).reshape(B * T, D))
         return h + y.reshape(B, T, D), aux
-    x = _ln(h, blk["ln2"]).to(compute_dtype)
+    x = copy_to_group(_ln(h, blk["ln2"]).to(compute_dtype), group)
     w_in = blk["mlp_in"].to(compute_dtype)
     # the pre-GELU hidden: GELU's backward reads its input, so the hybrid
     # modes save this tensor, not its activation
     with _producing("mlp_hidden"):
         z = x @ w_in
     x = F.gelu(z, approximate="tanh")   # jax.nn.gelu's default
-    m = (x @ blk["mlp_out"].to(compute_dtype)).float()
+    m = reduce_from_group((x @ blk["mlp_out"].to(compute_dtype)).float(),
+                          group)
     if dropout and rng is not None:
         m = _dropout(m, dropout, fold_in(rng, 1))
     return h + m, 0.0
 
 
 def _forward(params, tokens, pos, heads, attn_fn, compute_dtype, ffn_fn=None,
-             remat=False, head=True, dropout=0.0, rng=None):
+             remat=False, head=True, dropout=0.0, rng=None, group=None,
+             apply_blocks=None):
     """``(logits [B, T, vocab] float32, aux)``, or with ``head=False`` the
     final normed hidden state in place of the logits (the chunked-CE path
     applies the tied head itself). ``aux`` sums the blocks' MoE
     load-balancing losses (0 for dense blocks). ``remat`` checkpoints each
     block (see the module docstring); ``dropout`` with a key ``rng``
-    applies GPT-style dropout."""
+    applies GPT-style dropout. ``group`` is the blocks' tensor-parallel
+    group; ``apply_blocks(h)`` replaces the loop over the blocks (the
+    pipeline schedule), sharing the embedding, the final LN and the
+    head."""
     context_fn = _remat_policy(remat) if remat else None
     if "pos_emb" in params:
         max_len = params["pos_emb"].shape[0]
@@ -331,16 +365,26 @@ def _forward(params, tokens, pos, heads, attn_fn, compute_dtype, ffn_fn=None,
         h = params["tok_emb"][tokens] + params["pos_emb"][pos]
     else:
         h = params["tok_emb"][tokens]
-        attn_fn = _rope_wrap(attn_fn, pos)
+        if attn_fn is not None:
+            attn_fn = _rope_wrap(attn_fn, pos)
     if not 0.0 <= dropout < 1.0:
         raise ValueError(f"dropout rate {dropout} outside [0, 1)")
+    if dropout and apply_blocks is not None:
+        # the per-block residual dropout lives in the loop that the
+        # schedule replaces: refuse rather than drop it
+        raise ValueError("dropout > 0 is not supported on parallel-"
+                         "schedule (apply_blocks) paths: per-block "
+                         "residual dropout lives in the sequential loop")
     aux_total = 0.0
     if dropout and rng is not None:  # embedding dropout (GPT-style)
         h = _dropout(h, dropout, fold_in(rng, EMBED_SITE))
-    for i, blk in enumerate(params["blocks"]):
+    if apply_blocks is not None:
+        h = apply_blocks(h)
+    for i, blk in enumerate(params["blocks"] if apply_blocks is None
+                            else ()):
         blk_rng = (fold_in(rng, i) if dropout and rng is not None else None)
         args = (h, blk, heads, attn_fn, compute_dtype, ffn_fn, dropout,
-                blk_rng)
+                blk_rng, group)
         if remat:
             h, aux = checkpoint(_block, *args, use_reentrant=False,
                                 context_fn=context_fn or noop_context_fn)
@@ -405,6 +449,168 @@ def apply(params, tokens, *, heads=4, compute_dtype=torch.bfloat16,
                     dropout=dropout, rng=rng)[0]
 
 
+def _sp_attn(attn_impl: str, group: Group):
+    """Causal sequence-parallel attention over ``group`` by name: a ring
+    (``reference``: online softmax; ``flash``: :func:`ring_step` per hop)
+    or an all-to-all re-shard to head groups (``a2a``: the plain oracle
+    inside; ``a2a_flash``: ``flash_attention``, K2–K4 on the card)."""
+    if attn_impl == "flash":
+        from minips_tpu_torch.ops.flash_attention import (
+            ring_flash_attention_local)
+
+        return lambda q, k, v: ring_flash_attention_local(
+            q, k, v, group=group, causal=True)
+    if attn_impl == "reference":
+        from minips_tpu_torch.parallel.ring_attention import (
+            ring_attention_local)
+
+        return lambda q, k, v: ring_attention_local(q, k, v, group=group,
+                                                    causal=True)
+    if attn_impl in ("a2a", "a2a_flash"):
+        from minips_tpu_torch.parallel.a2a_attention import (
+            a2a_attention_local)
+
+        inner = None
+        if attn_impl == "a2a_flash":
+            from minips_tpu_torch.ops.flash_attention import flash_attention
+
+            inner = flash_attention  # a2a passes causal and scale
+        return lambda q, k, v: a2a_attention_local(
+            q, k, v, group=group, causal=True, inner=inner)
+    raise ValueError(f"unknown attn_impl {attn_impl!r} (expected "
+                     "'reference', 'flash', 'a2a', or 'a2a_flash')")
+
+
+def apply_sp(params, tokens_local, shift: int, *, heads=4,
+             group: Group = None, compute_dtype=torch.bfloat16, remat=False,
+             attn_impl="reference"):
+    """Sequence-parallel logits for this rank's token shard ``[B,
+    T_local]`` at global offset ``shift`` (``rank · T_local``): full
+    params, activations sharded on T, positions (learned or RoPE) at
+    their global values. ``attn_impl`` as :func:`_sp_attn`; ``a2a`` and
+    ``a2a_flash`` need heads divisible by the group size."""
+    T_local = tokens_local.shape[1]
+    pos = shift + torch.arange(T_local, device=tokens_local.device)
+    return _forward(params, tokens_local, pos, heads,
+                    _sp_attn(attn_impl, group), compute_dtype,
+                    remat=remat)[0]
+
+
+def sp_train_wiring(heads, T_local: int, group: Group = None,
+                    attn_impl="reference"):
+    """``(grad_fn, shard_batch)`` for sequence-parallel training through
+    ``DenseTable.make_step(group=...)``: ``shard_batch(tokens)`` cuts this
+    rank's ``{"inp", "tgt"}`` shards of a global ``[B, T+1]`` token batch
+    (every rank holds all B rows, its slice of T), and ``grad_fn`` takes
+    the shard-local loss at this rank's shift (``reduce="local"``: the
+    step's 1/n already averages the ranks' gradients)."""
+    rank = world(group)[0]
+    cols = slice(rank * T_local, (rank + 1) * T_local)
+
+    def sp_grad(params, batch):
+        return value_and_grad(lambda p: loss_sp(
+            p, batch["inp"], batch["tgt"], rank * T_local, heads=heads,
+            group=group, reduce="local", attn_impl=attn_impl), params)
+
+    def shard_batch(tokens):
+        return {"inp": tokens[:, :-1][:, cols], "tgt": tokens[:, 1:][:, cols]}
+
+    return sp_grad, shard_batch
+
+
+def _replicated(tree):
+    return tree_map(lambda _: None, tree)
+
+
+def apply_tp(params, tokens, *, heads=4, group: Group = None,
+             compute_dtype=torch.bfloat16):
+    """Megatron tensor-parallel logits over the model ``group``: the block
+    weights are this rank's shards per :func:`tp_specs`, the embeddings
+    and LNs whole, the activations replicated; plain causal attention on
+    this rank's heads/n heads."""
+    tp = world(group)[1]
+    if heads % tp:
+        raise ValueError(f"heads {heads} not divisible by tensor-parallel "
+                         f"size {tp} (head-boundary sharding)")
+    blk0 = params["blocks"][0]
+    if "wkv" in blk0:
+        # the shard's kv width must be whole kv heads
+        hd = params["tok_emb"].shape[1] // heads
+        local_w = blk0["wkv"].shape[2]
+        if local_w % hd:
+            raise ValueError(
+                f"GQA kv_heads {local_w * tp // hd} not divisible by "
+                f"tensor-parallel size {tp} (each shard needs whole kv "
+                f"heads)")
+    T = tokens.shape[1]
+    return _forward(params, tokens, torch.arange(T, device=tokens.device),
+                    heads,
+                    lambda q, k, v: reference_attention(q, k, v, causal=True),
+                    compute_dtype, group=group)[0]
+
+
+def tp_specs(params):
+    """:func:`apply_tp`'s spec tree: each block's q/k/v (``qkv``, or GQA's
+    ``wq`` and ``wkv``) and ``mlp_in`` cut on their output dim, ``proj``
+    and ``mlp_out`` on their input dim, at head boundaries; the rest
+    replicated."""
+    def one_block(blk):
+        out = {"ln1": _replicated(blk["ln1"]), "ln2": _replicated(blk["ln2"]),
+               "proj": 0, "mlp_in": 1, "mlp_out": 0}
+        if "wkv" in blk:
+            out["wq"], out["wkv"] = 1, 2
+        else:
+            out["qkv"] = 2
+        return out
+
+    return {**{k: None for k in ("tok_emb", "pos_emb") if k in params},
+            "ln_f": _replicated(params["ln_f"]),
+            "blocks": [one_block(b) for b in params["blocks"]]}
+
+
+def apply_pp(params, tokens, *, heads=4, group: Group = None,
+             num_microbatches=4, compute_dtype=torch.bfloat16):
+    """GPipe pipeline-parallel logits over the model ``group``:
+    ``params["blocks"]`` is this rank's stage, a stacked tree
+    (``parallel/pipeline.py:stack_layers``) cut on its depth axis per
+    :func:`pp_specs`; the batch splits into ``num_microbatches``."""
+    from minips_tpu_torch.parallel.pipeline import gpipe
+
+    B, T = tokens.shape
+    if B % num_microbatches:
+        raise ValueError(f"batch {B} not divisible into "
+                         f"{num_microbatches} microbatches")
+    blocks_local = params["blocks"]
+    depth_local = tree_leaves(blocks_local)[0].shape[0]
+    pos = torch.arange(T, device=tokens.device)
+    attn = lambda q, k, v: reference_attention(  # noqa: E731
+        q, k, v, causal=True)
+    if "pos_emb" not in params:  # the stage closure, not _forward, wraps
+        attn = _rope_wrap(attn, pos)
+
+    def stage_fn(x):
+        for i in range(depth_local):
+            x, _ = _block(x, tree_map(lambda t: t[i], blocks_local), heads,
+                          attn, compute_dtype)
+        return x
+
+    def piped_blocks(h):
+        h_mb = h.reshape(num_microbatches, B // num_microbatches, T, -1)
+        return gpipe(stage_fn, h_mb, group=group).reshape(B, T, -1)
+
+    return _forward(params, tokens, pos, heads, None, compute_dtype,
+                    apply_blocks=piped_blocks)[0]
+
+
+def pp_specs(params_stacked):
+    """:func:`apply_pp`'s spec tree: every stacked block leaf cut on its
+    depth axis; the rest replicated."""
+    return {**{k: None for k in ("tok_emb", "pos_emb")
+               if k in params_stacked},
+            "ln_f": _replicated(params_stacked["ln_f"]),
+            "blocks": tree_map(lambda _: 0, params_stacked["blocks"])}
+
+
 def init_moe_lm(gen: torch.Generator, *, vocab: int = 256, dim: int = 64,
                 heads: int = 4, depth: int = 2, max_len: int = 1024,
                 num_experts: int = 8, expert_hidden: int = 256,
@@ -439,6 +645,39 @@ def apply_moe_dense(params, tokens, *, heads=4, capacity: int,
         ffn_fn=lambda blk, x: moe_apply_dense(
             blk["moe"], x, capacity=capacity, compute_dtype=compute_dtype,
             k_top=k_top))
+
+
+def apply_ep(params, tokens_local, *, heads=4, group: Group = None,
+             capacity: int, compute_dtype=torch.bfloat16, k_top: int = 1):
+    """Expert-parallel MoE-LM ``(logits, aux)`` for this rank's batch shard:
+    attention data-parallel with whole weights, each block's experts this
+    rank's shard per :func:`ep_lm_specs`, every FFN's tokens sent to their
+    experts by all-to-all over ``group``."""
+    from minips_tpu_torch.parallel.moe import moe_apply_local
+
+    return _forward(
+        params, tokens_local,
+        torch.arange(tokens_local.shape[1], device=tokens_local.device),
+        heads, lambda q, k, v: reference_attention(q, k, v, causal=True),
+        compute_dtype,
+        ffn_fn=lambda blk, x: moe_apply_local(
+            blk["moe"], x, group=group, capacity=capacity,
+            compute_dtype=compute_dtype, k_top=k_top))
+
+
+def ep_lm_specs(params):
+    """:func:`apply_ep`'s spec tree: each block's expert stacks cut on the
+    expert dim (``parallel/moe.py:ep_specs``); the rest replicated."""
+    from minips_tpu_torch.parallel.moe import ep_specs
+
+    def one_block(blk):
+        out = _replicated({k: v for k, v in blk.items() if k != "moe"})
+        out["moe"] = ep_specs()
+        return out
+
+    return {**{k: None for k in ("tok_emb", "pos_emb") if k in params},
+            "ln_f": _replicated(params["ln_f"]),
+            "blocks": [one_block(b) for b in params["blocks"]]}
 
 
 def nll(logits, targets):
@@ -490,6 +729,21 @@ def loss(params, batch, *, heads=4, compute_dtype=torch.bfloat16,
                    compute_dtype=compute_dtype, attn_impl=attn_impl,
                    remat=remat, dropout=dropout, rng=rng)
     return nll(logits, toks[:, 1:])
+
+
+def loss_sp(params, tokens_local, targets_local, shift: int, *, heads=4,
+            group: Group = None, compute_dtype=torch.bfloat16,
+            reduce="pmean", attn_impl="reference"):
+    """This rank's next-token loss over its sequence shard.
+    ``reduce="pmean"`` gives the global mean (replicated);
+    ``reduce="local"`` the shard's own mean, for ``make_step``, whose push
+    already averages the ranks' gradients."""
+    logits = apply_sp(params, tokens_local, shift, heads=heads, group=group,
+                      compute_dtype=compute_dtype, attn_impl=attn_impl)
+    local = nll(logits, targets_local)
+    if reduce == "local":
+        return local
+    return pmean(local, group)
 
 
 def grad_fn(params, batch, *, heads=4, attn_impl="reference", remat=False,

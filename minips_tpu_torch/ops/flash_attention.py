@@ -33,6 +33,13 @@ the TPU's tiles. The kernels tile K at ``KERNEL_BLOCK`` = 64 rows (Q at
 and streams Q in tiles of 64); a caller's ``block_k`` sets only the
 plain version's K tile (its online-softmax rounding follows its tiles, as
 the TPU kernel's does).
+
+``ring_flash_attention_local`` is ring attention (sequence parallelism
+over a ``torch.distributed`` group) with the flash primitive doing each
+step: ``ring_step`` runs K2 on the resident Q shard against the visiting
+K/V shard at their global offsets (so whole shards are kept, skipped or
+diagonal) and merges by logsumexp in float32. The merge gives the step's
+lse a nonzero cotangent, which reaches K3 and K4 through ``dvec``.
 """
 
 from __future__ import annotations
@@ -42,6 +49,8 @@ import functools
 from typing import Optional
 
 import torch
+
+from minips_tpu_torch.parallel.mesh import Group, ppermute, world
 
 NEG_INF = -1e30  # finite mask value: no -inf arithmetic on masked rows
 KERNEL_BLOCK = 64  # the CUDA kernels' K tile rows
@@ -466,3 +475,50 @@ def flash_attention(q, k, v, *, causal: bool = False,
     plain version handles every row at once)."""
     return flash_with_lse(q, k, v, causal=causal, scale=scale,
                           block_k=min(block_k, k.shape[1]))[0]
+
+
+# ------------------------------------------------------- ring flash attn
+def ring_step(q, k_blk, v_blk, q_off: int, k_off: int, acc=None, lse=None,
+              *, causal: bool, scale: Optional[float] = None):
+    """One step of the ring: the flash primitive (K2 forward; K3 and K4 in
+    the backward) on the resident ``q`` ``[B, Tq, H, D]`` against a
+    visiting K/V shard at global offsets ``q_off`` / ``k_off``, folded
+    into the float32 running ``acc`` ``[B, Tq, H, D]`` and ``lse``
+    ``[B, Tq, H]`` by logsumexp weighting. Returns the new ``(acc, lse)``;
+    ``acc = lse = None`` starts the ring with this step's own output (the
+    merge with an empty state, lse −1e30, is exactly that, in value and in
+    gradient). The kernels launch on every step, a shard that the causal
+    mask hides whole included (it gives out 0 and lse −1e30, which the
+    merge weighs by 0), as the JAX scan runs every step."""
+    o_s, lse_s = flash_with_lse(q, k_blk, v_blk, q_off, k_off,
+                                causal=causal, scale=scale)
+    lse_s = lse_s[..., 0].transpose(1, 2)                 # [B, Tq, H]
+    if acc is None:
+        return o_s.float(), lse_s
+    lse_new = torch.logaddexp(lse, lse_s)
+    acc = (acc * torch.exp(lse - lse_new)[..., None]
+           + o_s.float() * torch.exp(lse_s - lse_new)[..., None])
+    return acc, lse_new
+
+
+def ring_flash_attention_local(q, k, v, *, group: Group,
+                               causal: bool = False,
+                               scale: Optional[float] = None):
+    """Ring attention over ``group`` with :func:`ring_step` doing each of
+    the n steps: q/k/v ``[B, T_local, H, D]`` are this rank's sequence
+    shards (k/v may carry fewer heads); the K/V shards rotate with
+    ``ppermute`` (n − 1 hops). Returns this rank's shard of exact
+    attention over the gathered sequence in q's type. On CUDA tensors K2
+    runs n times per call and K3 and K4 n times each in its backward; on
+    CPU tensors their plain versions run. Training keeps each step's
+    visiting shard for the backward (O(T) per rank over the n steps)."""
+    r, n = world(group)
+    Tq, Tk = q.shape[1], k.shape[1]
+    acc = lse = None
+    for step in range(n):
+        src = (r - step) % n  # the rank whose shard is visiting
+        acc, lse = ring_step(q, k, v, r * Tq, src * Tk, acc, lse,
+                             causal=causal, scale=scale)
+        if step < n - 1:
+            k, v = ppermute(k, group), ppermute(v, group)
+    return acc.to(q.dtype)

@@ -18,6 +18,32 @@ device, which runs no collective at all.
   ``chip_smoke.py`` (NCCL).
 - :func:`all_gather`, :func:`all_to_all` and :func:`all_reduce_sum` are
   the collectives the tables use; each is the identity under ``None``.
+- :func:`ppermute`, :func:`all_to_all_axes`, :func:`reduce_from_group`,
+  :func:`copy_to_group` and :func:`pmean` are the collectives of the
+  parallel schedules (ring and all-to-all attention, GPipe, tensor and
+  expert parallelism), each with its own backward; :func:`make_groups`
+  splits the world into the ``(data, model)`` groups of a 2-D mesh.
+
+**Gradients through the collectives.** JAX takes every gradient outside
+``shard_map``, whose transpose places the conjugate collectives; here
+autograd runs on each rank, so each collective carries its backward, in
+the convention of shard_map's replication tracking: a value that is the
+same on every rank of a group (replicated) has one cotangent, held whole
+by every rank, not a share of one. So the psum that makes a replicated
+value (:func:`reduce_from_group`) passes its cotangent through unchanged,
+and a replicated value entering a computation that differs between ranks
+(:func:`copy_to_group`) sums the ranks' cotangents. A parameter
+replicated over a group but used in a computation that differs between
+its ranks (every leaf over the data axis, which shards the batch) gets a
+share of its gradient on each rank: the caller sums those over the group,
+as shard_map's transpose of the implicit broadcast does.
+``torch.distributed.nn.functional.all_reduce`` sums the gradient as well
+and would count every replicated leaf once per rank.
+
+Every rank runs the same collectives in the same order, backward
+included: a schedule keeps its autograd graph the same on every rank
+(``torch.where`` on the rank where JAX uses ``jnp.where``), so that each
+collective's backward runs on every rank or on none.
 
 Every entry point of the port takes ``device=``. Left out, it resolves to
 the card, and the call raises when CUDA is absent: nothing quietly runs on
@@ -225,3 +251,165 @@ def all_reduce_sum(x: torch.Tensor, group: Group) -> torch.Tensor:
     out = x.clone()
     dist.all_reduce(out, group=group)
     return out
+
+
+# ------------------------------------------- collectives with a backward
+def axis_index(group: Group) -> int:
+    """This rank's index in ``group`` (``jax.lax.axis_index``)."""
+    return world(group)[0]
+
+
+def _global(group, i: int) -> int:
+    return i if group is None else dist.get_global_rank(group, i)
+
+
+def _rotate(x: torch.Tensor, group, shift: int) -> torch.Tensor:
+    """Send ``x`` to rank ``r + shift`` and receive from ``r - shift``
+    (mod n), both posted at once: at n = 2 the two peers are one rank,
+    which a blocking send would deadlock."""
+    r, n = world(group)
+    x = x.contiguous()
+    out = torch.empty_like(x)
+    ops = [dist.P2POp(dist.isend, x, _global(group, (r + shift) % n), group),
+           dist.P2POp(dist.irecv, out, _global(group, (r - shift) % n),
+                      group)]
+    for work in dist.batch_isend_irecv(ops):
+        work.wait()
+    return out
+
+
+class _Ppermute(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, shift):
+        ctx.group, ctx.shift = group, shift
+        return _rotate(x, group, shift)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _rotate(g, ctx.group, -ctx.shift), None, None
+
+
+def ppermute(x: torch.Tensor, group: Group, shift: int = 1) -> torch.Tensor:
+    """Rank ``i`` sends ``x`` to rank ``(i + shift) mod n`` and returns what
+    rank ``(i - shift) mod n`` sent: ``jax.lax.ppermute`` with the
+    permutation ``[(i, (i + shift) % n)]``. The backward sends the gradient
+    the other way. On a group of one the rotation is ``x`` itself."""
+    if world(group)[1] == 1:
+        return x
+    return _Ppermute.apply(x, group, shift)
+
+
+def _exchange(x, group, split_axis: int, concat_axis: int, tiled: bool):
+    n = world(group)[1]
+    if tiled:
+        if x.shape[split_axis] % n:
+            raise ValueError(f"all_to_all: dim {split_axis} of "
+                             f"{tuple(x.shape)} does not split {n} ways")
+        parts = x.chunk(n, dim=split_axis)
+    else:
+        if x.shape[split_axis] != n:
+            raise ValueError(f"all_to_all (untiled): dim {split_axis} of "
+                             f"{tuple(x.shape)} must be the group size {n}")
+        parts = x.unbind(split_axis)
+    got = all_to_all(torch.stack(parts), group).unbind(0)  # by source rank
+    return (torch.cat(got, dim=concat_axis) if tiled
+            else torch.stack(got, dim=concat_axis))
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, split_axis, concat_axis, tiled):
+        ctx.args = (group, split_axis, concat_axis, tiled)
+        return _exchange(x, group, split_axis, concat_axis, tiled)
+
+    @staticmethod
+    def backward(ctx, g):
+        group, split_axis, concat_axis, tiled = ctx.args
+        # the inverse exchange: split where the forward concatenated
+        return (_exchange(g, group, concat_axis, split_axis, tiled),
+                None, None, None, None)
+
+
+def all_to_all_axes(x: torch.Tensor, group: Group, split_axis: int,
+                    concat_axis: int, tiled: bool = True) -> torch.Tensor:
+    """``jax.lax.all_to_all(x, axis, split_axis, concat_axis, tiled)``:
+    ``x`` splits along ``split_axis`` into n parts, part ``j`` goes to rank
+    ``j``, and the parts received are joined along ``concat_axis`` in
+    source-rank order. Tiled, the parts are chunks of ``split_axis`` and
+    join by concatenation; untiled, ``split_axis`` has size n and is
+    removed, and the parts stack into a new axis at ``concat_axis``. The
+    backward is the inverse exchange. The identity on a group of one
+    (untiled: the size-1 axis moved)."""
+    if world(group)[1] == 1:
+        return x if tiled else x.movedim(split_axis, concat_axis)
+    return _AllToAll.apply(x, group, split_axis, concat_axis, tiled)
+
+
+def _all_reduce(x: torch.Tensor, group) -> torch.Tensor:
+    out = x.contiguous().clone()
+    dist.all_reduce(out, group=group)
+    return out
+
+
+class _ReduceFromGroup(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        return _all_reduce(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _CopyToGroup(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(g, ctx.group), None
+
+
+def reduce_from_group(x: torch.Tensor, group: Group) -> torch.Tensor:
+    """The sum over the group's ranks, a replicated value: all-reduce
+    forward, the identity backward (the psum after a row-parallel matmul,
+    and GPipe's closing broadcast)."""
+    if world(group)[1] == 1:
+        return x
+    return _ReduceFromGroup.apply(x, group)
+
+
+def copy_to_group(x: torch.Tensor, group: Group) -> torch.Tensor:
+    """A replicated value entering a computation that differs between the
+    group's ranks: the identity forward, the all-reduce of its gradient
+    backward (the activation that enters a column-parallel matmul)."""
+    if world(group)[1] == 1:
+        return x
+    return _CopyToGroup.apply(x, group)
+
+
+def pmean(x: torch.Tensor, group: Group) -> torch.Tensor:
+    """``jax.lax.pmean``: the mean over the group's ranks, replicated; its
+    backward hands each rank the cotangent over n."""
+    return reduce_from_group(x, group) / world(group)[1]
+
+
+def make_groups(n_data: int, model_size: int) -> tuple:
+    """This rank's ``(data_group, model_group)`` on a ``(n_data,
+    model_size)`` mesh of the default group's ranks, ``rank = d·model_size
+    + m`` as ``make_mesh`` reshapes its devices: the data group holds the
+    ranks of one ``m``, the model group those of one ``d``. Every rank
+    calls it together (``new_group`` is collective over every subgroup, in
+    one order)."""
+    w = dist.get_world_size()
+    if n_data * model_size != w:
+        raise ValueError(f"a {n_data} x {model_size} mesh needs "
+                         f"{n_data * model_size} ranks, the group has {w}")
+    d, m = divmod(dist.get_rank(), model_size)
+    data = [dist.new_group([i * model_size + j for i in range(n_data)])
+            for j in range(model_size)]
+    model = [dist.new_group([i * model_size + j for j in range(model_size)])
+             for i in range(n_data)]
+    return data[m], model[d]

@@ -12,9 +12,15 @@ straight-through gate for k = 1). The router learns through the combine
 weights; the one-hot dispatch takes no gradient.
 
 ``moe_apply_dense`` is the whole layer on one device, the JAX package's
-oracle. ``moe_apply_local`` and ``ep_specs`` (experts sharded over a mesh
-axis, two all-to-alls a layer) wait for the expert-parallel layout,
-ROADMAP.md queue 1 item 13.
+oracle. ``moe_apply_local`` is the expert-parallel layer over a
+``torch.distributed`` group: tokens sharded over the ranks, the router
+replicated, the experts' weights sharded on their expert dim
+(``ep_specs``); each rank packs its tokens into per-expert slots (a
+capacity queue per expert per source rank), one all-to-all ships the
+slots to the experts' owners, the owners run their experts, and a second
+all-to-all ships the results back. Gradients flow back through both
+exchanges; the load-balancing statistics are averaged over the group
+before their product, so the aux loss equals the one-device layer's.
 """
 
 from __future__ import annotations
@@ -22,7 +28,9 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from minips_tpu_torch.parallel.mesh import DeviceLike, resolve_device
+from minips_tpu_torch.parallel.mesh import (DeviceLike, Group,
+                                            all_to_all_axes, pmean,
+                                            resolve_device, world)
 
 
 def init_moe(gen: torch.Generator, num_experts: int, dim: int, hidden: int,
@@ -94,3 +102,41 @@ def moe_apply_dense(params, x, *, capacity: int,
                             compute_dtype)
     return (torch.einsum("nec,ecd->nd", combine, out_slots),
             _aux_loss(frac, mean_p, E))
+
+
+def moe_apply_local(params_local, x_local, *, group: Group, capacity: int,
+                    compute_dtype=torch.bfloat16, k_top: int = 1):
+    """The expert-parallel layer on this rank: ``x_local [N_local, D]``
+    are this rank's tokens, ``params_local`` the replicated router and
+    this rank's ``E/n`` experts (``w_in``, ``w_out`` cut on dim 0 by
+    ``ep_specs``). ``capacity`` is per expert per source rank. Returns
+    ``([N_local, D], aux_loss)``, the aux loss the same on every rank.
+    Equal to ``moe_apply_dense`` on the gathered tokens wherever the
+    capacity drops no route."""
+    k = world(group)[1]
+    E = params_local["router"].shape[1]
+    e_local = params_local["w_in"].shape[0]
+    if e_local * k != E:
+        raise ValueError(f"router knows {E} experts but {k} ranks hold "
+                         f"{e_local} each")
+    dispatch, combine, frac, mean_p = _dispatch_combine(
+        x_local, params_local["router"], E, capacity, k_top)
+    slots = torch.einsum("nec,nd->ecd", dispatch, x_local)    # [E, C, D]
+    # expert block j of every rank goes to rank j, which receives its
+    # experts' slots from every source rank: [k, e_local, C, D]
+    slots = slots.reshape(k, e_local, capacity, -1)
+    recv = all_to_all_axes(slots, group, 0, 0, tiled=False)
+    mine = recv.transpose(0, 1).reshape(e_local, k * capacity, -1)
+    out = _expert_ffn(params_local["w_in"], params_local["w_out"], mine,
+                      compute_dtype)
+    out = out.reshape(e_local, k, capacity, -1).transpose(0, 1)
+    back = all_to_all_axes(out, group, 0, 0, tiled=False)
+    y = torch.einsum("nec,ecd->nd", combine, back.reshape(E, capacity, -1))
+    aux = _aux_loss(pmean(frac, group), pmean(mean_p, group), E)
+    return y, aux
+
+
+def ep_specs() -> dict:
+    """The dim each leaf of ``moe_apply_local``'s params is sharded on over
+    the expert group (None: replicated)."""
+    return {"router": None, "w_in": 0, "w_out": 0}

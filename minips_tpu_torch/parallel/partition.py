@@ -1,6 +1,7 @@
 """Range partitioner — a numpy copy of ``RangePartitioner`` from
 ``minips_tpu/parallel/partition.py`` (the port imports nothing of the JAX
-package, whose ``__init__`` pulls in JAX).
+package, whose ``__init__`` pulls in JAX) — and :func:`shard_params`, the
+port's counterpart of ``device_put`` with a ``NamedSharding``.
 
 A table of ``n`` keys padded to ``P`` is laid out as ``shards`` contiguous
 ranges of ``P/shards`` keys, shard ``r`` on rank ``r`` of the table's
@@ -14,6 +15,7 @@ from __future__ import annotations
 import numpy as np
 
 from minips_tpu_torch.parallel.mesh import padded_size
+from minips_tpu_torch.utils.tree import PyTree, tree_leaves, tree_rebuild
 
 
 class RangePartitioner:
@@ -41,3 +43,26 @@ class RangePartitioner:
     def local_offset(self, keys: np.ndarray) -> np.ndarray:
         """Offset of each key within its owner shard."""
         return np.asarray(keys) % self.shard_size
+
+
+def shard_params(params: PyTree, specs: PyTree, rank: int, n: int) -> PyTree:
+    """This rank's shard of every leaf of ``params``: ``specs`` is a tree of
+    the same structure whose leaves are the dim each leaf is sharded on
+    over a group of ``n`` ranks, or None (replicated: the leaf itself).
+    A sharded dim is cut into n equal contiguous pieces and rank ``rank``
+    keeps piece ``rank`` (a view), as a mesh axis places a
+    ``PartitionSpec``'s shards."""
+    dims = tree_leaves(specs)
+    leaves = tree_leaves(params)
+    if len(dims) != len(leaves):
+        raise ValueError(f"specs have {len(dims)} leaves, params "
+                         f"{len(leaves)}")
+    out = []
+    for x, dim in zip(leaves, dims):
+        if dim is not None:
+            if x.shape[dim] % n:
+                raise ValueError(f"dim {dim} of a {tuple(x.shape)} leaf "
+                                 f"does not split {n} ways")
+            x = x.chunk(n, dim=dim)[rank]
+        out.append(x)
+    return tree_rebuild(params, iter(out))

@@ -10,14 +10,26 @@ other places): 5 steps of each flag set give the same losses to
 ``rtol`` 1e-4, only the summation order differing. Greedy ``--generate``
 tokens are equal. A resumed run reproduces the uninterrupted run's losses
 exactly, a completed run resumed again takes no step, and every flag the
-JAX app refuses is refused; ``--layout sp|tp|pp|ep`` raise
-``NotImplementedError``.
+JAX app refuses is refused.
+
+The layouts through a process group: ``--layout dp`` (the table sharded,
+each rank on its rows), ``sp`` with each ``--attn`` (ring reference, ring
+flash, a2a, a2a_flash), ``tp``, ``pp`` and ``ep`` run on gloo ranks on
+the CPU (``run_ranks``; the rank body is ``torch_parallel_ranks.py``'s
+``lm_run``), 2 ranks for dp, sp and ep, 2 x 2 for tp and pp, against ``minips_tpu.apps.lm_example.run`` on the 8 host
+devices, both from the JAX app's initial weights with every layout's
+model at float32 compute: 3 steps give the same losses to ``rtol`` 1e-4
+(the losses do not depend on the rank count; ep's capacity of 128 slots
+per expert per source holds every route on both sides, whose per-source
+token counts differ).
 """
 
 from __future__ import annotations
 
 import argparse
 import copy
+import functools
+import json
 import os
 
 import jax
@@ -26,6 +38,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_parallel_ranks as ranks
 from minips_tpu.apps import lm_example as jlmx
 from minips_tpu.models import transformer as jtfm
 from minips_tpu.parallel.mesh import make_mesh
@@ -33,6 +46,7 @@ from minips_tpu.utils.metrics import MetricsLogger as JMetrics
 from minips_tpu_torch import interop
 from minips_tpu_torch.apps import lm_example as tlmx
 from minips_tpu_torch.core import config as tcfg
+from minips_tpu_torch.parallel.mesh import run_ranks
 from minips_tpu_torch.models import transformer as ttfm
 from minips_tpu_torch.utils.metrics import MetricsLogger
 
@@ -60,16 +74,20 @@ def _args(**kw):
     return dict(dict(seq_len=SEQ), **kw)
 
 
+def _jgrad_f32(params, batch, *, heads=4, attn_impl="reference",
+               remat=False, head_chunk=0, dropout=0.0):
+    """The JAX package's ``grad_fn`` at float32 compute."""
+    return jax.value_and_grad(lambda p: jtfm.loss(
+        p, batch, heads=heads, compute_dtype=jnp.float32,
+        attn_impl=attn_impl, remat=remat, head_chunk=head_chunk,
+        dropout=dropout))(params)
+
+
 @pytest.fixture
 def f32_models(monkeypatch):
     """Both packages' grad_fn at float32 compute, the JAX app on one
     device, the port's initial weights the JAX app's."""
-    def jgrad(params, batch, *, heads=4, attn_impl="reference",
-              remat=False, head_chunk=0, dropout=0.0):
-        return jax.value_and_grad(lambda p: jtfm.loss(
-            p, batch, heads=heads, compute_dtype=jnp.float32,
-            attn_impl=attn_impl, remat=remat, head_chunk=head_chunk,
-            dropout=dropout))(params)
+    jgrad = _jgrad_f32
 
     def tgrad(params, batch, *, heads=4, attn_impl="reference",
               remat=False, head_chunk=0, dropout=0.0):
@@ -201,11 +219,63 @@ def test_refusals_match_jax(flags):
             _port(tc, layout=flags["layout"])
 
 
-@pytest.mark.parametrize("layout", ["sp", "tp", "pp", "ep"])
-def test_unported_layouts_raise(layout):
-    _, tc = _cfgs(iters=1)
-    with pytest.raises(NotImplementedError, match="item 13"):
-        _port(tc, layout=layout)
+# --layout runs: (flags, ranks); sp's 8 heads split over JAX's 8 devices
+LAYOUTS = {
+    "dp": (dict(layout="dp", attn="flash"), 2),
+    "sp-reference": (dict(layout="sp", heads=8), 2),
+    "sp-flash": (dict(layout="sp", attn="flash", heads=8), 2),
+    "sp-a2a": (dict(layout="sp", attn="a2a", heads=8), 2),
+    "sp-a2a_flash": (dict(layout="sp", attn="a2a_flash", heads=8,
+                          kv_heads=2, rope=True), 2),
+    "tp": (dict(layout="tp", tp=2, kv_heads=2), 4),
+    "pp": (dict(layout="pp", tp=2, microbatches=2, rope=True), 4),
+    "ep": (dict(layout="ep", experts=8, capacity=128, kv_heads=2), 2),
+}
+LAYOUT_STEPS = 3
+
+
+def _jax_weights(jc, flags):
+    model = jlmx._model_cfg(argparse.Namespace(**flags), SEQ)
+    key = jax.random.PRNGKey(jc.train.seed)
+    if flags["layout"] == "ep":
+        params = jtfm.init_moe_lm(
+            key, vocab=model["vocab"], dim=model["dim"],
+            heads=model["heads"], depth=model["depth"],
+            max_len=model["max_len"], num_experts=flags["experts"],
+            kv_heads=model.get("kv_heads"), rope=model.get("rope", False))
+    else:
+        params = jtfm.init(key, **model)
+    return jax.tree.map(np.asarray, params)
+
+
+@pytest.fixture(scope="module")
+def layout_runs():
+    """Each layout's port losses, every case run by one spawn per rank
+    count."""
+    jc, tc = _cfgs(iters=LAYOUT_STEPS)
+    cases = {n: [] for _, n in LAYOUTS.values()}
+    for name, (flags, n) in LAYOUTS.items():
+        cases[n].append((name, "lm_run", dict(
+            args=_args(**flags), params=_jax_weights(jc, _args(**flags)),
+            table=vars(tc.table), train=vars(tc.train))))
+    return {n: run_ranks(ranks.run_cases, n, c, device="cpu")
+            for n, c in cases.items()}
+
+
+@pytest.mark.parametrize("name", sorted(LAYOUTS))
+def test_layout_matches_jax(name, layout_runs, monkeypatch):
+    flags, n = LAYOUTS[name]
+    for fn in ("loss_sp", "apply_tp", "apply_pp", "apply_ep"):
+        monkeypatch.setattr(jtfm, fn, functools.partial(
+            getattr(jtfm, fn), compute_dtype=jnp.float32))
+    monkeypatch.setattr(jtfm, "grad_fn", _jgrad_f32)
+    jc, _ = _cfgs(iters=LAYOUT_STEPS)
+    want = jlmx.run(jc, argparse.Namespace(**_args(**flags)),
+                    JMetrics(None, verbose=False))["losses"]
+    assert len(want) == LAYOUT_STEPS
+    for r in range(n):
+        got = layout_runs[n][r][name]["losses"]
+        np.testing.assert_allclose(got, want, rtol=RTOL)
 
 
 @pytest.mark.parametrize("lr,warmup,iters", [(3e-3, 3, 5), (3e-3, 5, 200),
@@ -228,3 +298,23 @@ def test_warmup_cosine_schedule_matches_optax(lr, warmup, iters):
     np.testing.assert_allclose(
         [float(got(torch.tensor(c, dtype=torch.int32))) for c in counts],
         [float(want(jnp.int32(c))) for c in counts], rtol=2.5e-7, atol=0)
+
+
+def test_cli_runs_a_layout_on_spawned_ranks(tmp_path):
+    """The CLI's path for a parallel layout: ``--ranks 2`` gloo ranks
+    spawned by ``run_ranks``, rank 0's losses returned and its metrics
+    written, and the same losses as the same run in this process on the
+    one-device group (``run(..., group=None)``): the ring of two gives the
+    ring of one's attention at float32, the layers' per-token matmuls run
+    at bf16 on both."""
+    _, tc = _cfgs(iters=3, metrics_path=str(tmp_path / "m.jsonl"))
+    args = argparse.Namespace(device="cpu", ranks=2, **_args(layout="sp"))
+    got = tlmx._run_cli(tc, args, MetricsLogger(None, verbose=False))
+    assert len(got["losses"]) == 3 and np.all(np.isfinite(got["losses"]))
+    logged = [json.loads(line) for line in open(tmp_path / "m.jsonl")]
+    assert logged[-1]["final_loss"] == got["losses"][-1]
+    assert logged[-1]["layout"] == "sp"
+    _, tc = _cfgs(iters=3)
+    one = tlmx.run(tc, argparse.Namespace(device="cpu", **_args(layout="sp")),
+                   MetricsLogger(None, verbose=False))
+    np.testing.assert_allclose(got["losses"], one["losses"], rtol=1e-3)
