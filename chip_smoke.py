@@ -171,7 +171,31 @@ raises on failure:
     (8 experts of hidden 256) at width 2048, depth 8, T 1024, B 4 with
     plain attention, 5 iterations each: step time, tokens/s, peak memory,
     the first loss within 2e-3 of the one-device ``apply`` (for ep
-    ``apply_moe_dense``) on the same weights and batch.
+    ``apply_moe_dense``) on the same weights and batch;
+24. in one rank spawned on an NCCL group of world size 1: every app's
+    spmd run through the group (``run(..., group)``) at phases 11-14's
+    defaults and data (Wide&Deep and DeepFM at 2^18 slots, D 8, B 1024;
+    LR dense and sparse; the MLP; MF on phase 13's ``ratings.csv``;
+    word2vec): the first 3 losses bit-identical to ``group=None``'s, both
+    in PyTorch's deterministic mode; K1 launched as phases 11-14 count
+    it; samples/s beside ``group=None``'s;
+25. in the same rank, Wide&Deep ``--exec threaded`` through
+    ``Engine(group=)`` with 4 workers under SSP s = 2: no admitted pull
+    more than 2 clocks ahead of the slowest worker, falling loss, K1
+    twice per worker step, samples/s;
+26. in the same rank, checkpoints under the group: ``lr_example``'s dense
+    resume (100 of 200 steps, a checkpoint every 50, restarted) and
+    ``lm_example --layout dp --attn flash`` at phase 18's width with one
+    block (3 of 6 steps, restarted; deterministic mode): the resumed
+    losses equal the uninterrupted run's, one step directory per save,
+    K2-K4 launched in the resumed run as ``want_launches`` counts them.
+
+``python3 chip_smoke.py --ranks N`` runs phases 22-23 and then 24-26 on
+N cards of one machine, one NCCL rank each: the LR + MLP pair at 65,536
+rows per card and at 65,536 in all, Wide&Deep spmd and threaded (rank 0
+driving N workers) and the ``lr_example`` resume, with samples/s in all
+and per card beside one card's in the same call, and K1's launches on
+every rank.
 
 The last two lines are a JSON object with every kernel's numbers (its
 launches on each path beside them) and then ``{"ok": true, "device":
@@ -334,6 +358,13 @@ RING_N, RING_GQA_KV = 4, 8
 SP_ITERS = 8
 PAR_B, PAR_ITERS, PAR_MICRO = 4, 5, 4
 PAR_LOSS_TOL = 2e-3
+# phases 24-26: the apps, the Engine and checkpoints through an NCCL group,
+# in one spawned rank (n ranks under --ranks n); phase 25's SSP staleness;
+# phase 26's LM at full width and one block, LM_CKPT_ITERS steps whole and
+# half, resumed; the pair's one-card batch, bench_lrmlp's
+WD_SSP = 2
+LM_CKPT_DEPTH, LM_CKPT_ITERS = 1, 6
+PAIR_ONE_CARD_BATCH = B
 
 
 def check(cond: bool, msg: str) -> None:
@@ -1553,11 +1584,381 @@ def parallel_phases(group, dev, cfg) -> dict:
     return {"rows": rows, "launches": paths}
 
 
+def app_group_phases(group, dev, cfg) -> dict:
+    """Phases 24-26 on every rank of an NCCL group of n ranks, one card
+    each (n = 1 in the default run, n = ``--ranks`` on n cards):
+
+    24. each app of ``cfg["spmd_apps"]`` (phases 11-14's flags and data)
+        in spmd mode through the group: every rank steps on its rows of
+        every global batch; K1 launched on every rank as phases 11-14
+        count it; samples/s in all and per card beside the same run with
+        ``group=None`` on rank 0 alone. At n = 1 the first losses also
+        equal ``group=None``'s bit for bit, both in PyTorch's
+        deterministic mode; at n > 1 they are held within LOSS_TOL. With
+        ``cfg["pair_batches"]`` the LR + MLP pair through the group at
+        each global batch, beside one card's at PAIR_ONE_CARD_BATCH.
+    25. Wide&Deep threaded through ``Engine(group=)`` under SSP s =
+        WD_SSP, rank 0 driving ``cfg["wd_workers"]`` workers while the
+        other ranks serve their shards: no admitted pull more than s
+        clocks ahead of the slowest worker, falling loss, K1 twice per
+        worker step on every rank (its keys' owners), samples/s.
+    26. ``lr_example``'s dense checkpoint resume through the group (rank 0
+        writes, every rank restores): the resumed losses equal the
+        uninterrupted run's, one step directory per save; with
+        ``cfg["lm_ckpt"]`` also ``lm_example --layout dp --attn flash`` at
+        full width and LM_CKPT_DEPTH blocks, in deterministic mode, with
+        K2-K4 launched in the resumed run.
+
+    Returns each rank's numbers; rank 0 prints."""
+    import argparse
+    import copy
+
+    # cuBLAS picks one workspace per call, so that the deterministic runs
+    # repeat their GEMMs bit for bit (read before this rank's first GEMM)
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    import torch
+
+    from minips_tpu_torch import consistency
+    from minips_tpu_torch.apps import lm_example as lmx
+    from minips_tpu_torch.apps import lr_example as lrx
+    from minips_tpu_torch.apps import mf_example as mfx
+    from minips_tpu_torch.apps import mlp_example as mlpx
+    from minips_tpu_torch.apps import wide_deep_example as wdx
+    from minips_tpu_torch.apps import word2vec_example as w2vx
+    from minips_tpu_torch.apps.lrmlp import build_lrmlp
+    from minips_tpu_torch.core import config as tcfg
+    from minips_tpu_torch.ops import flash_attention as tfa
+    from minips_tpu_torch.ops.gather import gather_rows
+    from minips_tpu_torch.parallel.mesh import barrier, world
+    from minips_tpu_torch.utils.metrics import MetricsLogger
+
+    rank, n = world(group)
+    where = ("an NCCL group of one" if n == 1
+             else f"an NCCL group of {n} cards")
+    card = cfg["card"]
+    out = {"rank": rank, "spmd": {}, "k1": {}}
+    # over n > 1 cards, rank 0 alone through a group of one as well: the
+    # one-card figures with the group layer's own cost, in this call
+    solo = torch.distributed.new_group([0]) if n > 1 else None
+
+    def say(msg):
+        if rank == 0:
+            print(msg, flush=True)
+
+    def app_run(app, mode, grp, *, iters=None, workers=APP_WORKERS,
+                train=None, **args):
+        """One ``run`` of an app at its defaults through ``grp``; returns
+        (result, K1 launches on this rank)."""
+        conf = copy.deepcopy(app.DEFAULT)
+        conf.train.log_every = 0
+        conf.train.num_workers = workers
+        if iters:
+            conf.train.num_iters = iters
+        for key, value in (train or {}).items():
+            setattr(conf.train, key, value)
+        torch.cuda.synchronize()
+        gather_rows.launches = 0
+        res = app.run(conf, argparse.Namespace(exec_mode=mode,
+                                               device=str(dev), **args),
+                      MetricsLogger(None, verbose=False), grp)
+        torch.cuda.synchronize()
+        return res, gather_rows.launches
+
+    # ---------------------------------- 24. every app's spmd through the group
+    wd_args = dict(eval_frac=WD_EVAL_FRAC, dtype="float32", data_file=None,
+                   stream=False)
+    wd_eval = 2 * math.ceil(int(16384 * WD_EVAL_FRAC) / WD_EVAL_CHUNK)
+    lr_eval = math.ceil(int(8192 * LR_EVAL_FRAC) / WD_EVAL_CHUNK)
+    mf_eval = 2 * math.ceil(int(MF_RATINGS * MF_EVAL_FRAC) / mfx.EVAL_CHUNK)
+    # key: (app, flags, K1 launches a step, K1 launches for the holdout)
+    spmd = {
+        "wide_deep": (wdx, dict(model="widedeep", **wd_args), 2, wd_eval),
+        "deepfm": (wdx, dict(model="deepfm", **wd_args), 2, wd_eval),
+        "lr_dense": (lrx, dict(data="dense", eval_frac=LR_EVAL_FRAC), 0, 0),
+        "lr_sparse": (lrx, dict(data="sparse", eval_frac=LR_EVAL_FRAC), 1,
+                      lr_eval),
+        "mlp": (mlpx, {}, 0, 0),
+        "mf": (mfx, dict(data_file=cfg.get("ratings"),
+                         eval_frac=MF_EVAL_FRAC), 2, mf_eval),
+        "word2vec": (w2vx, {}, 2, 0)}
+    for key in cfg["spmd_apps"]:
+        app, flags, per_step, eval_k1 = spmd[key]
+        iters = {wdx: WD_ITERS}.get(app)
+        check_kw = dict(flags, eval_frac=0.0) if "eval_frac" in flags \
+            else flags
+        # the first losses, in deterministic mode (index_add_'s atomics
+        # sum in no fixed order otherwise): rank 0 alone, then the group
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            alone = (app_run(app, "spmd", None, iters=CPU_STEPS,
+                             **check_kw)[0]["losses"] if rank == 0
+                     else None)
+            grouped = app_run(app, "spmd", group, iters=CPU_STEPS,
+                              **check_kw)[0]["losses"]
+        finally:
+            torch.use_deterministic_algorithms(False)
+        if rank == 0:
+            diff = max(abs(a - b) for a, b in zip(alone, grouped))
+            check(grouped == alone if n == 1 else diff <= LOSS_TOL,
+                  f"{key} spmd through {where}: first losses {grouped}, "
+                  f"group=None's {alone}")
+        # the rates at the app's defaults: one card alone, then the group
+        one = (app_run(app, "spmd", None, iters=iters, **flags)[0]
+               if rank == 0 else None)
+        one_group = (app_run(app, "spmd", solo, iters=iters, **flags)[0]
+                     if rank == 0 and solo is not None else None)
+        res, k1 = app_run(app, "spmd", group, iters=iters, **flags)
+        steps = len(res["losses"])
+        check(steps == (iters or app.DEFAULT.train.num_iters)
+              and all(math.isfinite(x) for x in res["losses"]),
+              f"{key} spmd through {where}: losses {res['losses']}")
+        want = per_step * steps + eval_k1
+        check(k1 == want, f"{key} spmd through {where}: gather_rows "
+              f"launched {k1} times on rank {rank}, expected {want} "
+              f"({per_step} a step and {eval_k1} for the holdout)")
+        row = {"card": card, "ranks": n, "steps": steps,
+               "global_batch": app.DEFAULT.train.batch_size,
+               "loss_first": res["losses"][0], "loss_last": res["losses"][-1],
+               "gather_launches_rank": k1,
+               "gathers_per_step": (k1 - eval_k1) / steps}
+        if rank == 0:
+            row.update(first_losses=grouped, first_losses_group_none=alone,
+                       first_losses_bit_identical=grouped == alone,
+                       samples_per_s=res["samples_per_sec"],
+                       samples_per_s_per_gpu=res["samples_per_sec"] / n,
+                       samples_per_s_group_none=one["samples_per_sec"],
+                       per_gpu_over_one_card=res["samples_per_sec"] / n
+                       / one["samples_per_sec"])
+            if one_group is not None:
+                row["samples_per_s_one_card_group"] = \
+                    one_group["samples_per_sec"]
+            for k in ("auc", "rmse", "accuracy"):
+                if k in res:
+                    row[k] = res[k]
+        out["spmd"][key] = row
+        out["k1"][f"{key}_spmd"] = k1
+        say(f"{key} spmd through {where} (phase 24): " + json.dumps(row))
+        del res, one, one_group
+
+    # the LR + MLP pair through the group at each global batch, beside one
+    # card's (rank 0 alone) at the primary metric's batch
+    out["pair"] = {}
+    if cfg.get("pair_batches"):
+        one_s = {}
+        if rank == 0:  # one card alone, and through a group of one
+            for key, grp_ in (("none", None), ("group", solo)):
+                pair = build_lrmlp(PAIR_ONE_CARD_BATCH, dev, seed=0,
+                                   group=grp_)
+                run_pair_steps(pair, 2)
+                one_s[key] = statistics.median(chain_seconds(
+                    torch, lambda: run_pair_steps(pair, CHAIN))
+                    for _ in range(REPS))
+                del pair
+        for gb in cfg["pair_batches"]:
+            pair = build_lrmlp(gb, dev, seed=0, group=group)
+            losses = [(float(x), float(y)) for x, y in run_pair_steps(pair, 2)]
+            torch.cuda.synchronize()
+            gather_rows.launches = 0
+            chains = [chain_seconds(torch, lambda: run_pair_steps(pair, CHAIN))
+                      for _ in range(REPS)]
+            k1 = gather_rows.launches
+            check(k1 == 2 * CHAIN * REPS and all(
+                math.isfinite(x) for p in losses for x in p),
+                f"pair at {gb} through {where}: {k1} gathers on rank {rank} "
+                f"in {CHAIN * REPS} steps, losses {losses}")
+            med = statistics.median(chains)
+            row = {"card": card, "ranks": n, "global_batch": gb,
+                   "batch_per_card": gb // n, "chain": CHAIN, "reps": REPS,
+                   "step_ms": 1e3 * med / CHAIN,
+                   "samples_per_s": gb * CHAIN / med,
+                   "samples_per_s_per_gpu": gb * CHAIN / med / n,
+                   "gather_launches_rank": k1, "gathers_per_step": k1 / (
+                       CHAIN * REPS), "chain_s": chains}
+            if rank == 0:
+                one_rate = {k: PAIR_ONE_CARD_BATCH * CHAIN / v
+                            for k, v in one_s.items()}
+                row.update(
+                    one_card_batch=PAIR_ONE_CARD_BATCH,
+                    one_card_samples_per_s=one_rate["none"],
+                    one_card_group_samples_per_s=one_rate["group"],
+                    one_card_step_ms={k: 1e3 * v / CHAIN
+                                      for k, v in one_s.items()},
+                    per_gpu_over_one_card=gb * CHAIN / med / n
+                    / one_rate["none"])
+            out["pair"][gb] = row
+            out["k1"][f"lrmlp_{gb}"] = k1
+            say(f"LR + MLP pair at a global batch of {gb} through {where} "
+                "(phase 24): " + json.dumps(row))
+            del pair
+
+    # ---------------- 25. Wide&Deep threaded through Engine(group=), SSP
+    gaps = []
+
+    class Recording(consistency.SSP):
+        def wait_until_admitted(self, worker, timeout=None):
+            ok = super().wait_until_admitted(worker, timeout)
+            with self._cond:
+                gaps.append(self.tracker.clock_of(worker)
+                            - self.tracker.min_clock)
+            return ok
+
+    workers = cfg["wd_workers"]
+    conf = copy.deepcopy(wdx.DEFAULT)
+    conf.table.consistency, conf.table.staleness = "ssp", WD_SSP
+    conf.train.num_workers, conf.train.num_iters = workers, WD_ITERS
+    conf.train.log_every = 0
+    thr_args = argparse.Namespace(exec_mode="threaded", model="widedeep",
+                                  device=str(dev), **wd_args)
+    # over n > 1 cards, the same workers on rank 0's card alone first
+    one_thr = (wdx.run(conf, thr_args, MetricsLogger(None, verbose=False))
+               ["samples_per_sec"] if rank == 0 and n > 1 else None)
+    orig = consistency.make_controller
+    consistency.make_controller = (lambda kind, nw, staleness, sync_every:
+                                   Recording(nw, staleness=staleness))
+    try:
+        torch.cuda.synchronize()
+        gather_rows.launches = 0
+        res = wdx.run(conf, thr_args, MetricsLogger(None, verbose=False),
+                      group)
+        torch.cuda.synchronize()
+        k1 = gather_rows.launches
+    finally:
+        consistency.make_controller = orig
+    losses = res["losses"]
+    check(len(losses) == WD_ITERS and all(math.isfinite(x) for x in losses)
+          and losses[-1] < losses[0],
+          f"Wide&Deep threaded through {where}: losses {losses}")
+    steps = WD_ITERS * workers
+    check(k1 == 2 * steps + wd_eval, f"Wide&Deep threaded through {where}: "
+          f"gather_rows launched {k1} times on rank {rank}, expected "
+          f"{2 * steps + wd_eval}")
+    if rank == 0:  # the gate lives on rank 0
+        check(len(gaps) == 3 * steps and 0 <= min(gaps)
+              and max(gaps) <= WD_SSP, f"Wide&Deep threaded SSP s={WD_SSP} "
+              f"through {where}: {len(gaps)} admitted pulls, clock gaps "
+              f"{min(gaps, default=None)}..{max(gaps, default=None)}")
+    else:
+        check(not gaps, f"rank {rank} admitted pulls; the gate is rank 0's")
+    out["threaded"] = {
+        "card": card, "ranks": n, "workers": workers, "staleness": WD_SSP,
+        "iters": WD_ITERS, "loss_first": losses[0], "loss_last": losses[-1],
+        "samples_per_s": res["samples_per_sec"],
+        "samples_per_s_per_gpu": res["samples_per_sec"] / n,
+        "holdout_auc": res["auc"], "gather_launches_rank": k1,
+        "gathers_per_worker_step": (k1 - wd_eval) / steps,
+        "admitted_pulls": len(gaps), "max_clock_gap": max(gaps, default=None),
+        "samples_per_s_group_none": one_thr}
+    out["k1"][f"wide_deep_threaded_ssp{WD_SSP}"] = k1
+    say(f"Wide&Deep threaded SSP s={WD_SSP}, {workers} workers on rank 0, "
+        f"through {where} (phase 25): " + json.dumps(out["threaded"]))
+    del res
+
+    # ------------------------------ 26. checkpoints under the group
+    ck_dir = os.path.join(cfg["ckpt_root"], "lr_dense")
+    if rank == 0:
+        shutil.rmtree(ck_dir, ignore_errors=True)  # a killed run's leftovers
+    barrier(group)
+    lr_iters = lrx.DEFAULT.train.num_iters
+    lr_flags = dict(data="dense", eval_frac=LR_EVAL_FRAC)
+    whole = app_run(lrx, "spmd", group, **lr_flags)[0]
+    ck = {"checkpoint_dir": ck_dir, "checkpoint_every": RESUME_EVERY}
+    part = app_run(lrx, "spmd", group, iters=RESUME_AT, train=ck,
+                   **lr_flags)[0]
+    saved = sorted(os.listdir(ck_dir))
+    resumed = app_run(lrx, "spmd", group, train=ck, **lr_flags)[0]
+    saved_after = sorted(os.listdir(ck_dir))
+    barrier(group)
+    if rank == 0:
+        shutil.rmtree(ck_dir)
+    want_dirs = [f"step_{s:010d}" for s in
+                 range(RESUME_EVERY, RESUME_AT + 1, RESUME_EVERY)]
+    check(saved == want_dirs, f"LR dense through {where}: step directories "
+          f"{saved} after {RESUME_AT} steps, expected {want_dirs}")
+    check(part["losses"] + resumed["losses"] == whole["losses"]
+          and resumed["auc"] == whole["auc"],
+          f"LR dense resumed at step {RESUME_AT} through {where}: losses "
+          "differ from the uninterrupted run's")
+    out["resume"] = {"lr_dense": {
+        "card": card, "ranks": n, "iters": lr_iters, "resumed_at": RESUME_AT,
+        "every": RESUME_EVERY, "losses_equal": True,
+        "step_dirs_after_part": saved, "step_dirs_after_resume": saved_after,
+        "holdout_auc": resumed["auc"]}}
+    say(f"lr_example dense checkpoint resume through {where} (phase 26): "
+        + json.dumps(out["resume"]["lr_dense"]))
+
+    if cfg.get("lm_ckpt"):
+        flash = ("flash_forward", "flash_bwd_dq", "flash_bwd_dkv")
+        lm_dir = os.path.join(cfg["ckpt_root"], "lm_dp")
+        if rank == 0:
+            shutil.rmtree(lm_dir, ignore_errors=True)
+        barrier(group)
+        half = LM_CKPT_ITERS // 2
+
+        def lm_run(iters, ckpt):
+            conf = tcfg.Config(
+                table=tcfg.TableConfig(name="lm", kind="dense",
+                                       updater="adam", lr=APP_LM_LR),
+                train=tcfg.TrainConfig(batch_size=LM_B, num_iters=iters,
+                                       log_every=0, seed=0,
+                                       checkpoint_dir=lm_dir if ckpt
+                                       else None,
+                                       checkpoint_every=half if ckpt else 0))
+            args = argparse.Namespace(device=dev, layout="dp",
+                                      resume=ckpt, **dict(
+                                          APP_LM_FLAGS, depth=LM_CKPT_DEPTH))
+            torch.cuda.synchronize()
+            for name in flash:
+                getattr(tfa, name).launches = 0
+            res = lmx.run(conf, args, MetricsLogger(None, verbose=False),
+                          group)
+            torch.cuda.synchronize()
+            return res, {k: getattr(tfa, k).launches for k in flash}
+
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            lm_whole, _ = lm_run(LM_CKPT_ITERS, False)
+            lm_part, _ = lm_run(half, True)
+            lm_saved = sorted(os.listdir(lm_dir))
+            lm_resumed, lm_k = lm_run(LM_CKPT_ITERS, True)
+        finally:
+            torch.use_deterministic_algorithms(False)
+        barrier(group)
+        if rank == 0:
+            shutil.rmtree(lm_dir)
+        want = want_launches(APP_LM_FLAGS["remat_mode"], LM_CKPT_DEPTH,
+                             LM_CKPT_ITERS - half)
+        check(lm_saved == [f"step_{half:010d}"], f"lm_example dp through "
+              f"{where}: step directories {lm_saved} after {half} steps")
+        check(lm_resumed["start_step"] == half and lm_k == want,
+              f"lm_example dp resumed through {where}: start step "
+              f"{lm_resumed['start_step']}, flash launches {lm_k}, "
+              f"expected {want}")
+        check(lm_part["losses"] + lm_resumed["losses"] == lm_whole["losses"],
+              f"lm_example dp resumed at step {half} through {where}: losses "
+              f"{lm_part['losses'] + lm_resumed['losses']} differ from the "
+              f"uninterrupted run's {lm_whole['losses']}")
+        out["resume"]["lm_dp"] = {
+            "card": card, "ranks": n, "flags": dict(APP_LM_FLAGS,
+                                                    depth=LM_CKPT_DEPTH),
+            "batch": LM_B, "iters": LM_CKPT_ITERS, "resumed_at": half,
+            "losses_equal": True, "losses": lm_whole["losses"],
+            "launches_resumed": lm_k}
+        out["flash_resumed"] = lm_k
+        say(f"lm_example dp (--attn flash) checkpoint resume through {where} "
+            "(phase 26): " + json.dumps(out["resume"]["lm_dp"]))
+    return out
+
+
 def multi_card_main(torch, n: int) -> int:
-    """``chip_smoke.py --ranks n``: phases 22-23 alone, on n cards of one
-    machine, one rank each through NCCL (the ring's rotations and the
-    layouts' collectives between cards): each layout's step time,
-    tokens/s and peak memory on rank 0, and its checks on every rank."""
+    """``chip_smoke.py --ranks n``: phases 22-23 and the parameter server's
+    phases 24-26 alone, on n cards of one machine, one rank each through
+    NCCL (the ring's rotations, the layouts' and the tables' collectives
+    between cards): each layout's step time, tokens/s and peak memory on
+    rank 0, and its checks on every rank; then the LR + MLP pair at
+    65,536 rows per card and at 65,536 in all, Wide&Deep spmd and threaded
+    (rank 0 driving n workers) and the ``lr_example`` resume, with
+    samples/s in all and per card beside one card's, measured in the same
+    call, and K1's launches on every rank."""
     from minips_tpu_torch.ops import _build
     from minips_tpu_torch.parallel.mesh import run_ranks
 
@@ -1570,7 +1971,7 @@ def multi_card_main(torch, n: int) -> int:
     for line in cards[:n]:
         print(f"card: {line}", flush=True)
     t0 = time.perf_counter()
-    _build.build_all(["flash_attn"])
+    _build.build_all(["gather_rows", "flash_attn"])
     print(f"build: {time.perf_counter() - t0:.2f} s", flush=True)
     t0 = time.perf_counter()
     par = run_ranks(parallel_phases, n,
@@ -1585,6 +1986,34 @@ def multi_card_main(torch, n: int) -> int:
           f"{time.perf_counter() - t0:.1f} s): " + json.dumps(
               {k: [r["step_ms"], r["tokens_per_s"], r["peak_mem_gb"]]
                for k, r in par["rows"].items()}), flush=True)
+    t0 = time.perf_counter()
+    appg = run_ranks(app_group_phases, n, {
+        "card": " | ".join(sorted(set(cards[:n]))), "wd_workers": n,
+        "spmd_apps": ("wide_deep",), "pair_batches": (B * n, B),
+        "ckpt_root": os.path.join(REPO, "build", "chip_smoke_ckpt_group")},
+        timeout=GROUP_TIMEOUT_S,
+        store_dir=os.path.join(REPO, "build", "chip_smoke_store"))
+    head = appg[0]
+    rates = {f"lrmlp_{gb}": [r["samples_per_s"], r["samples_per_s_per_gpu"],
+                             r["one_card_samples_per_s"],
+                             r["per_gpu_over_one_card"]]
+             for gb, r in head["pair"].items()}
+    rates.update({f"{k}_spmd": [r["samples_per_s"],
+                                r["samples_per_s_per_gpu"],
+                                r["samples_per_s_group_none"],
+                                r["per_gpu_over_one_card"]]
+                  for k, r in head["spmd"].items()})
+    thr = head["threaded"]
+    rates["wide_deep_threaded"] = [
+        thr["samples_per_s"], thr["samples_per_s_per_gpu"],
+        thr["samples_per_s_group_none"],
+        thr["samples_per_s_per_gpu"] / thr["samples_per_s_group_none"]]
+    print(f"parameter server on {n} cards, by path [samples/s in all, per "
+          f"card, one card alone, per card over one card] (phases 24-26, "
+          f"{time.perf_counter() - t0:.1f} s): " + json.dumps(rates),
+          flush=True)
+    print(f"K1 launches on each of the {n} ranks, by path: " + json.dumps(
+        {k: [r["k1"][k] for r in appg] for k in head["k1"]}), flush=True)
     print(cards[0])
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -2525,7 +2954,6 @@ def main() -> int:
         print(f"app {key} device time per {unit} (torch.profiler over "
               f"{APP_PROFILED_ITERS} iterations): " + json.dumps(dev_t),
               flush=True)
-    os.remove(ratings)
 
     # ------------- 15-16. the sharded PS through an NCCL group of one rank
     from minips_tpu_torch.parallel.mesh import run_ranks
@@ -2589,13 +3017,32 @@ def main() -> int:
           "[step ms, tokens/s, peak GB] (phases 22-23): " + json.dumps(
               {k: [r["step_ms"], r["tokens_per_s"], r["peak_mem_gb"]]
                for k, r in par["rows"].items()}), flush=True)
+    # ------ 24-26. the apps, the Engine and checkpoints through a group
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    appg = run_ranks(app_group_phases, 1, {
+        "card": card, "ratings": ratings, "wd_workers": WD_WORKERS,
+        "spmd_apps": ("wide_deep", "deepfm", "lr_dense", "lr_sparse", "mlp",
+                      "mf", "word2vec"),
+        "lm_ckpt": True,
+        "ckpt_root": os.path.join(REPO, "build", "chip_smoke_ckpt_group")},
+        timeout=GROUP_TIMEOUT_S,
+        store_dir=os.path.join(REPO, "build", "chip_smoke_store"))[0]
+    phase_s["24-26"] = time.perf_counter() - t0
+    os.remove(ratings)
+    print("apps' spmd samples/s through an NCCL group of one beside "
+          "group=None, by app [group, group=None] (phase 24): " + json.dumps(
+              {k: [r["samples_per_s"], r["samples_per_s_group_none"]]
+               for k, r in appg["spmd"].items()}), flush=True)
     print("LM decoding (phase 19): " + json.dumps(decoding), flush=True)
-    print("seconds taken by phases 17-23: " + json.dumps(phase_s),
+    print("seconds taken by phases 17-26: " + json.dumps(phase_s),
           flush=True)
 
     kernels[0]["launches_by_path"] = dict(
         lrmlp=main_launches["gather_rows"], **wd_launches, **app_launches,
-        lrmlp_group_ws1=grp["pair"]["gather_launches"])
+        lrmlp_group_ws1=grp["pair"]["gather_launches"],
+        **{f"{k}_group_ws1": v for k, v in appg["k1"].items()})
     for k in kernels[1:]:
         k["launches_by_path"] = {f"lm_{opt}": v[k["name"]]
                                  for opt, v in lm_paths.items()}
@@ -2613,6 +3060,8 @@ def main() -> int:
         k["launches_by_path"].update({
             f"lm_example_{name}_group_ws1": par["launches"][name][k["name"]]
             for name in ("dp_flash", "sp_flash", "sp_a2a_flash")})
+        k["launches_by_path"]["lm_example_dp_flash_resumed_group_ws1"] = \
+            appg["flash_resumed"][k["name"]]
 
     print(f"card: {card}")
     print(json.dumps({"kernels": kernels}))

@@ -25,9 +25,10 @@ the ranks that hold it replicated while their batches differ (the data
 axis), as shard_map's transpose sums it, and the loss is the data mean.
 ``run(cfg, args, metrics, group)`` runs one rank of a layout on a
 ``torch.distributed`` group (the default group, which ``make_groups``
-splits for tp and pp; ``None`` is one device); the CLI spawns one rank
-per visible card (``--ranks``; with ``--device cpu``, gloo ranks on the
-CPU) through ``parallel/mesh.py:run_ranks`` and prints rank 0's metrics.
+splits for tp and pp; ``None`` is one device); the CLI spawns ``--ranks``
+ranks (the apps' shared flag, ``apps/common.py``; for sp, tp, pp and ep 0
+means one per visible card; with ``--device cpu``, gloo ranks on the CPU)
+through ``parallel/mesh.py:run_ranks`` and prints rank 0's metrics.
 
 The dp path has every flag of the JAX app's:
 
@@ -43,14 +44,12 @@ The dp path has every flag of the JAX app's:
 - ``--data_file`` (a byte-level LM over a file) in place of synthetic
   Markov sequences;
 - ``--checkpoint_dir/--checkpoint_every/--resume`` (the native
-  checkpointer; a completed run resumed again takes no step);
+  checkpointer; a completed run resumed again takes no step; under a
+  group, dp and sp, rank 0 writes and every rank restores);
 - ``--generate N`` (``--temperature``): after training, decode N tokens
   through the KV cache (``models/decode.py``) at the training precision.
 
-The JAX app's refusals are kept flag by flag. One more: under a group
-of more than one rank, ``--checkpoint_dir`` is refused (every rank would
-write the same global state; sharded checkpoint writes are ROADMAP.md
-queue 1 item 10's).
+The JAX app's refusals are kept flag by flag.
 
 Usage: python -m minips_tpu_torch.apps.lm_example --num_iters 200
        python -m minips_tpu_torch.apps.lm_example --device cpu \\
@@ -66,20 +65,19 @@ import functools
 
 import torch
 
-from minips_tpu_torch.apps.common import app_main
+from minips_tpu_torch.apps.common import app_main, run_cli
 from minips_tpu_torch.core.config import Config, TableConfig, TrainConfig
 from minips_tpu_torch.data import synthetic
 from minips_tpu_torch.data.loader import BatchIterator
 from minips_tpu_torch.models import transformer as tfm
 from minips_tpu_torch.parallel.mesh import (Group, all_reduce_sum,
                                             axis_index, make_groups, pmean,
-                                            resolve_device, run_ranks, world)
+                                            resolve_device, world)
 from minips_tpu_torch.parallel.partition import shard_params
 from minips_tpu_torch.tables.dense import DenseTable, ravel
 from minips_tpu_torch.tables.updaters import (make_updater,
                                               warmup_cosine_decay_schedule)
 from minips_tpu_torch.train.loop import TrainLoop
-from minips_tpu_torch.utils.metrics import MetricsLogger
 from minips_tpu_torch.utils.tree import tree_leaves, tree_rebuild
 
 DEFAULT = Config(
@@ -90,8 +88,6 @@ DEFAULT = Config(
 MODEL = dict(vocab=256, dim=64, heads=4, depth=2, max_len=1024)
 # the dropout keys' seed offset from --seed, as in the JAX app
 DROPOUT_SEED_OFFSET = 71
-# the spawned ranks of a CLI run: a training run may take days
-CLI_TIMEOUT_S = 7 * 24 * 3600.0
 
 
 def _flags(parser):
@@ -101,10 +97,6 @@ def _flags(parser):
                              "(ring or all-to-all attention); tp: Megatron "
                              "tensor parallel; pp: GPipe pipeline; ep: "
                              "MoE-LM with experts sharded over the ranks")
-    parser.add_argument("--ranks", type=int, default=0,
-                        help="sp/tp/pp/ep: processes to spawn, one device "
-                             "each (0: one per visible card; 1 with "
-                             "--device cpu)")
     parser.add_argument("--experts", type=int, default=8,
                         help="ep layout: number of experts (must divide "
                              "by the rank count)")
@@ -306,10 +298,6 @@ def run(cfg: Config, args, metrics, group: Group = None) -> dict:
     if layout == "dp" and cfg.train.batch_size % n_shards:
         raise SystemExit(f"--batch_size {cfg.train.batch_size} must divide "
                          f"by the {n_shards}-way group")
-    if n_shards > 1 and (getattr(cfg.train, "checkpoint_dir", None)
-                         or getattr(args, "checkpoint_dir", None)):
-        raise SystemExit("--checkpoint_dir runs on one rank: every rank "
-                         "would write the same global state")
     model = _model_cfg(args, seq_len)
     data = _load_data(cfg, args, seq_len)
     params = _init_params(cfg.train.seed, model, device)
@@ -319,7 +307,7 @@ def run(cfg: Config, args, metrics, group: Group = None) -> dict:
                        device=device, group=group)
     del params  # the table holds the only copy
     heads = model["heads"]
-    ckpt, start_step = _maybe_checkpointer(cfg, args, table)
+    ckpt, start_step = _maybe_checkpointer(cfg, args, table, group)
 
     compute_dtype = (torch.bfloat16
                      if getattr(args, "dtype", "float32") == "bfloat16"
@@ -427,16 +415,17 @@ def _ckpt_every(cfg, args) -> int:
             or getattr(args, "checkpoint_every", 0) or 0)
 
 
-def _maybe_checkpointer(cfg, args, table):
+def _maybe_checkpointer(cfg, args, table, group: Group = None):
     """(Checkpointer or None, start step); the directory honours
-    --config_file through cfg.train."""
+    --config_file through cfg.train. Under a group rank 0 writes and every
+    rank restores."""
     path = (getattr(cfg.train, "checkpoint_dir", None)
             or getattr(args, "checkpoint_dir", None))
     if not path:
         return None, 0
     from minips_tpu_torch.ckpt import make_checkpointer
 
-    ckpt = make_checkpointer(path, {"lm": table})
+    ckpt = make_checkpointer(path, {"lm": table}, group=group)
     start = 0
     if getattr(args, "resume", False) and ckpt.list_steps():
         start = ckpt.restore()
@@ -582,28 +571,14 @@ def _run_ep(cfg, args, metrics, seq_len, device, group) -> dict:
                        capacity=capacity)
 
 
-def _rank_run(group, device, cfg, args) -> dict:
-    """One spawned rank of a CLI run: rank 0 logs the metrics."""
-    rank = world(group)[0]
-    args.device = device
-    metrics = MetricsLogger(cfg.train.metrics_path if rank == 0 else None,
-                            verbose=rank == 0)
-    try:
-        out = run(cfg, args, metrics, group)
-    finally:
-        metrics.close()
-    return {"losses": out["losses"],
-            "samples_per_sec": out["samples_per_sec"]}
-
-
 def _run_cli(cfg, args, metrics) -> dict:
-    """dp runs here; sp, tp, pp and ep on ``--ranks`` spawned ranks."""
-    if getattr(args, "layout", "dp") == "dp":
-        return run(cfg, args, metrics)
-    cpu = resolve_device(getattr(args, "device", None)).type == "cpu"
-    n = args.ranks or (1 if cpu else torch.cuda.device_count())
-    return run_ranks(_rank_run, n, cfg, args, device="cpu" if cpu else None,
-                     timeout=CLI_TIMEOUT_S)[0]
+    """``--ranks`` spawned ranks; without it, dp runs here and sp, tp, pp
+    and ep on one rank per visible card (one gloo rank on the CPU)."""
+    n = getattr(args, "ranks", 0)
+    if not n and getattr(args, "layout", "dp") != "dp":
+        cpu = resolve_device(getattr(args, "device", None)).type == "cpu"
+        n = 1 if cpu else torch.cuda.device_count()
+    return run_cli(run, cfg, args, metrics, ranks=n)
 
 
 def main():

@@ -16,6 +16,12 @@ Modes:
 ``--data_file`` reads a libsvm file in place of the synthetic rows;
 ``--eval_frac`` holds rows out and scores them by streaming ROC-AUC.
 
+``run(cfg, args, metrics, group)`` runs one rank of a process group (the
+CLI's ``--ranks N``), the table range-sharded over the ranks: in spmd mode
+each rank steps on its rows of every global batch, in threaded mode rank
+0 runs the workers and the other ranks serve (``core/engine.py``). A
+checkpoint under a group is written by rank 0 and restored by every rank.
+
 Usage: python -m minips_tpu_torch.apps.lr_example --num_iters 200 --lr 0.5
 """
 
@@ -23,15 +29,15 @@ from __future__ import annotations
 
 import torch
 
-from minips_tpu_torch.apps.common import (app_main, holdout_split,
-                                          score_holdout, threaded_train,
-                                          to_device)
+from minips_tpu_torch.apps.common import (app_main, global_batch,
+                                          holdout_split, score_holdout,
+                                          threaded_train, to_device)
 from minips_tpu_torch.core.config import Config, TableConfig, TrainConfig
 from minips_tpu_torch.core.engine import Engine
 from minips_tpu_torch.data import synthetic
 from minips_tpu_torch.data.loader import BatchIterator
 from minips_tpu_torch.models import lr as lr_model
-from minips_tpu_torch.parallel.mesh import resolve_device
+from minips_tpu_torch.parallel.mesh import Group, resolve_device, shard_batch
 from minips_tpu_torch.tables.dense import DenseTable
 from minips_tpu_torch.tables.sparse import SparseTable
 from minips_tpu_torch.train.loop import TrainLoop
@@ -46,7 +52,10 @@ DEFAULT = Config(
 SPARSE_SLOTS = 1 << 16
 
 
-def run(cfg: Config, args, metrics) -> dict:
+def run(cfg: Config, args, metrics, group: Group = None) -> dict:
+    """One rank of a training run (``group``: the run's process group,
+    ``None`` for one device); every rank calls it with the same ``cfg``
+    and ``args``."""
     device = resolve_device(getattr(args, "device", None))
     dim = getattr(args, "dim", 123)
     path = getattr(args, "data_file", None)
@@ -58,30 +67,32 @@ def run(cfg: Config, args, metrics) -> dict:
         else:
             data = synthetic.classification_dense(8192, dim,
                                                   seed=cfg.train.seed)
-        return _run_dense(cfg, args, metrics, data, dim, device)
+        return _run_dense(cfg, args, metrics, data, dim, device, group)
     if path:  # an RCV1-style libsvm file, hashed sparse weights
         from minips_tpu_torch.data.libsvm import read_libsvm
         data = read_libsvm(path)
     else:
         data = synthetic.classification_sparse(8192, seed=cfg.train.seed)
-    return _run_sparse(cfg, args, metrics, data, device)
+    return _run_sparse(cfg, args, metrics, data, device, group)
 
 
-def _run_dense(cfg, args, metrics, data, dim, device) -> dict:
+def _run_dense(cfg, args, metrics, data, dim, device, group) -> dict:
     data, holdout = holdout_split(data, getattr(args, "eval_frac", 0.0),
                                   seed=cfg.train.seed)
     if getattr(args, "exec_mode", "spmd") == "threaded":
-        return _run_threaded(cfg, metrics, data, dim, holdout, device)
-    batches = BatchIterator(data, cfg.train.batch_size, seed=cfg.train.seed)
+        return _run_threaded(cfg, metrics, data, dim, holdout, device, group)
+    batches = BatchIterator(data, global_batch(cfg.train.batch_size, group),
+                            seed=cfg.train.seed)
     table = DenseTable(lr_model.init(dim, device=device),
                        updater=cfg.table.updater, lr=cfg.table.lr,
-                       device=device)
+                       device=device, group=group)
     step = table.make_step(lr_model.grad_fn_dense)
 
     ck, start_step = None, 0
     if cfg.train.checkpoint_dir:
         from minips_tpu_torch.ckpt import make_checkpointer
-        ck = make_checkpointer(cfg.train.checkpoint_dir, {"weights": table})
+        ck = make_checkpointer(cfg.train.checkpoint_dir, {"weights": table},
+                               group=group)
         if ck.list_steps():  # resume from the newest checkpoint
             start_step = ck.restore()
             metrics.log(resumed_from_step=start_step)
@@ -91,8 +102,8 @@ def _run_dense(cfg, args, metrics, data, dim, device) -> dict:
                 metrics.log(warning="holdout AUC after resume is only valid "
                                     "if --eval_frac/--seed match the "
                                     "checkpointing run")
-    loop = TrainLoop(lambda b: table.step_inplace(step,
-                                                  to_device(b, device)),
+    loop = TrainLoop(lambda b: table.step_inplace(
+                         step, shard_batch(b, group, device)),
                      batches, metrics=metrics, log_every=cfg.train.log_every,
                      batch_size=cfg.train.batch_size, checkpointer=ck,
                      checkpoint_every=cfg.train.checkpoint_every,
@@ -106,18 +117,21 @@ def _run_dense(cfg, args, metrics, data, dim, device) -> dict:
          "table": table}, metrics)
 
 
-def _run_sparse(cfg, args, metrics, data, device) -> dict:
+def _run_sparse(cfg, args, metrics, data, device, group) -> dict:
     data, holdout = holdout_split(data, getattr(args, "eval_frac", 0.0),
                                   seed=cfg.train.seed)
     table = SparseTable(SPARSE_SLOTS, 1, updater=cfg.table.updater,
-                        lr=cfg.table.lr, init_scale=0.0, device=device)
+                        lr=cfg.table.lr, init_scale=0.0, device=device,
+                        group=group)
 
     def loss_fn(dense_params, rows, batch):
         return lr_model.loss_sparse(rows["w"], batch)
 
     ps = PSTrainStep(loss_fn, sparse={"w": table},
-                     key_fns={"w": lambda b: b["idx"]}, device=device)
-    batches = BatchIterator(data, cfg.train.batch_size, seed=cfg.train.seed)
+                     key_fns={"w": lambda b: b["idx"]}, device=device,
+                     group=group)
+    batches = BatchIterator(data, global_batch(cfg.train.batch_size, group),
+                            seed=cfg.train.seed)
     loop = TrainLoop(lambda b: ps(ps.shard_batch(b)), batches,
                      metrics=metrics, log_every=cfg.train.log_every,
                      batch_size=cfg.train.batch_size)
@@ -135,9 +149,9 @@ def _run_sparse(cfg, args, metrics, data, device) -> dict:
          "table": table}, metrics)
 
 
-def _run_threaded(cfg, metrics, data, dim, holdout, device) -> dict:
-    engine = Engine(num_workers=cfg.train.num_workers,
-                    device=device).start_everything()
+def _run_threaded(cfg, metrics, data, dim, holdout, device, group) -> dict:
+    engine = Engine(num_workers=cfg.train.num_workers, device=device,
+                    group=group).start_everything()
     engine.create_table(
         TableConfig(name="w", kind="dense", consistency=cfg.table.consistency,
                     staleness=cfg.table.staleness, updater=cfg.table.updater,

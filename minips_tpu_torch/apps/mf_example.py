@@ -15,6 +15,10 @@ Two modes:
 
 ``--data_file`` reads MovieLens ratings (``ratings.csv``, ``ratings.dat``
 or ``u.data``); ``--eval_frac`` holds ratings out and scores them by RMSE.
+``run(cfg, args, metrics, group)`` runs one rank of a process group (the
+CLI's ``--ranks N``), both tables range-sharded over the ranks, each rank
+stepping on its rows of every batch (spmd) or serving rank 0's workers
+(threaded); every rank scores the holdout (its pulls are collectives).
 ``--exec multiproc`` (ROADMAP.md queue 1 items 14-15) is not ported yet
 and raises.
 
@@ -28,14 +32,14 @@ import functools
 import numpy as np
 import torch
 
-from minips_tpu_torch.apps.common import (app_main, holdout_split,
-                                          threaded_train)
+from minips_tpu_torch.apps.common import (app_main, global_batch,
+                                          holdout_split, threaded_train)
 from minips_tpu_torch.core.config import Config, TableConfig, TrainConfig
 from minips_tpu_torch.core.engine import Engine
 from minips_tpu_torch.data import synthetic
 from minips_tpu_torch.data.loader import BatchIterator
 from minips_tpu_torch.models import mf as mf_model
-from minips_tpu_torch.parallel.mesh import resolve_device
+from minips_tpu_torch.parallel.mesh import Group, resolve_device
 from minips_tpu_torch.tables.sparse import SparseTable, next_pow2
 from minips_tpu_torch.train.loop import TrainLoop
 from minips_tpu_torch.train.ps_step import PSTrainStep
@@ -50,14 +54,15 @@ REG = 0.02
 EVAL_CHUNK = 8192
 
 
-def make_tables(cfg: Config, users: int, items: int, device):
-    """The user and item tables. Capacities round up to a power of two
-    (the slot hash masks), and the readers give dense 0-based ids, so the
-    identity map gives every user and item its own row (ML-20M's 138,493
-    users take 2^18 rows)."""
+def make_tables(cfg: Config, users: int, items: int, device,
+                group: Group = None):
+    """The user and item tables, sharded over ``group``. Capacities round
+    up to a power of two (the slot hash masks), and the readers give dense
+    0-based ids, so the identity map gives every user and item its own row
+    (ML-20M's 138,493 users take 2^18 rows)."""
     mk = functools.partial(SparseTable, updater=cfg.table.updater,
                            lr=cfg.table.lr, init_scale=0.1, identity=True,
-                           device=device)
+                           device=device, group=group)
     return (mk(next_pow2(users, 1 << 10), cfg.table.dim, seed=1, name="user"),
             mk(next_pow2(items, 1 << 11), cfg.table.dim, seed=2, name="item"))
 
@@ -71,7 +76,10 @@ def _load_ratings(cfg, args) -> dict:
     return synthetic.movielens_like(seed=cfg.train.seed)
 
 
-def run(cfg: Config, args, metrics) -> dict:
+def run(cfg: Config, args, metrics, group: Group = None) -> dict:
+    """One rank of a training run (``group``: the run's process group,
+    ``None`` for one device); every rank calls it with the same ``cfg``
+    and ``args``."""
     mode = getattr(args, "exec_mode", "spmd")
     if mode == "multiproc":
         raise SystemExit("--exec multiproc is not ported yet (ROADMAP.md "
@@ -79,12 +87,13 @@ def run(cfg: Config, args, metrics) -> dict:
     device = resolve_device(getattr(args, "device", None))
     data = _load_ratings(cfg, args)
     user_t, item_t = make_tables(cfg, int(data["user"].max()) + 1,
-                                 int(data["item"].max()) + 1, device)
+                                 int(data["item"].max()) + 1, device, group)
     data, holdout = holdout_split(data,
                                   getattr(args, "eval_frac", None) or 0.0,
                                   seed=cfg.train.seed)
     if mode == "threaded":
-        return _run_threaded(cfg, metrics, data, user_t, item_t, holdout)
+        return _run_threaded(cfg, metrics, data, user_t, item_t, holdout,
+                             group)
 
     def loss_fn(dense_params, rows, batch):
         return mf_model.loss(rows["user"], rows["item"], batch["rating"],
@@ -95,8 +104,10 @@ def run(cfg: Config, args, metrics) -> dict:
     ps = PSTrainStep(loss_fn, sparse={"user": user_t, "item": item_t},
                      key_fns={"user": lambda b: b["user"],
                               "item": lambda b: b["item"]},
-                     grad_scale=cfg.train.batch_size, device=device)
-    batches = BatchIterator(data, cfg.train.batch_size, seed=cfg.train.seed)
+                     grad_scale=cfg.train.batch_size, device=device,
+                     group=group)
+    batches = BatchIterator(data, global_batch(cfg.train.batch_size, group),
+                            seed=cfg.train.seed)
     loop = TrainLoop(lambda b: ps(ps.shard_batch(b)), batches,
                      metrics=metrics, log_every=cfg.train.log_every,
                      batch_size=cfg.train.batch_size)
@@ -132,12 +143,13 @@ def _score_holdout_rmse(out, holdout, user_t, item_t, metrics,
     return out
 
 
-def _run_threaded(cfg, metrics, data, user_t, item_t, holdout) -> dict:
+def _run_threaded(cfg, metrics, data, user_t, item_t, holdout,
+                  group) -> dict:
     from minips_tpu_torch.consistency import make_controller
 
     device = user_t.device
-    engine = Engine(num_workers=cfg.train.num_workers,
-                    device=device).start_everything()
+    engine = Engine(num_workers=cfg.train.num_workers, device=device,
+                    group=group).start_everything()
     for name, t in (("user", user_t), ("item", item_t)):
         # --consistency/--staleness (asp is the reference's configuration)
         engine.register_table(name, t, make_controller(

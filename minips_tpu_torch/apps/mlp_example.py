@@ -6,7 +6,10 @@ The default is the reference's SSP with staleness 4. One fused step over
 the whole batch (``--exec spmd``) has no clock gap to bound, so it runs
 bulk-synchronously; ``--exec threaded`` runs true SSP with worker threads
 sharing the card. The tower multiplies in bf16 with float32 weights, as
-``models/mlp.py`` does.
+``models/mlp.py`` does. ``run(cfg, args, metrics, group)`` runs one rank
+of a process group (the CLI's ``--ranks N``), the table range-sharded
+over the ranks, each rank stepping on its rows of every batch (spmd) or
+serving rank 0's workers (threaded).
 
 Usage: python -m minips_tpu_torch.apps.mlp_example --num_iters 300
 """
@@ -15,14 +18,14 @@ from __future__ import annotations
 
 import torch
 
-from minips_tpu_torch.apps.common import (app_main, threaded_train,
-                                          to_device)
+from minips_tpu_torch.apps.common import (app_main, global_batch,
+                                          threaded_train, to_device)
 from minips_tpu_torch.core.config import Config, TableConfig, TrainConfig
 from minips_tpu_torch.core.engine import Engine
 from minips_tpu_torch.data import synthetic
 from minips_tpu_torch.data.loader import BatchIterator
 from minips_tpu_torch.models import mlp as mlp_model
-from minips_tpu_torch.parallel.mesh import resolve_device
+from minips_tpu_torch.parallel.mesh import Group, resolve_device, shard_batch
 from minips_tpu_torch.tables.dense import DenseTable
 from minips_tpu_torch.train.loop import TrainLoop
 from minips_tpu_torch.utils.tree import tree_map
@@ -36,7 +39,10 @@ SIZES = (784, 256, 128, 10)
 ACCURACY_ROWS = 2048
 
 
-def run(cfg: Config, args, metrics) -> dict:
+def run(cfg: Config, args, metrics, group: Group = None) -> dict:
+    """One rank of a training run (``group``: the run's process group,
+    ``None`` for one device); every rank calls it with the same ``cfg``
+    and ``args``."""
     device = resolve_device(getattr(args, "device", None))
     images = getattr(args, "images", None)
     labels = getattr(args, "labels", None)
@@ -57,14 +63,15 @@ def run(cfg: Config, args, metrics) -> dict:
                      device)
 
     if getattr(args, "exec_mode", "spmd") == "threaded":
-        return _run_threaded(cfg, metrics, data, template, held)
+        return _run_threaded(cfg, metrics, data, template, held, group)
 
-    batches = BatchIterator(data, cfg.train.batch_size, seed=cfg.train.seed)
+    batches = BatchIterator(data, global_batch(cfg.train.batch_size, group),
+                            seed=cfg.train.seed)
     table = DenseTable(template, updater=cfg.table.updater, lr=cfg.table.lr,
-                       device=device)
+                       device=device, group=group)
     step = table.make_step(mlp_model.grad_fn)
-    loop = TrainLoop(lambda b: table.step_inplace(step,
-                                                  to_device(b, device)),
+    loop = TrainLoop(lambda b: table.step_inplace(
+                         step, shard_batch(b, group, device)),
                      batches, metrics=metrics, log_every=cfg.train.log_every,
                      batch_size=cfg.train.batch_size)
     losses = loop.run(cfg.train.num_iters)
@@ -75,10 +82,10 @@ def run(cfg: Config, args, metrics) -> dict:
             "samples_per_sec": loop.timer.samples_per_sec, "table": table}
 
 
-def _run_threaded(cfg, metrics, data, template, held) -> dict:
+def _run_threaded(cfg, metrics, data, template, held, group) -> dict:
     device = held["x"].device
-    engine = Engine(num_workers=cfg.train.num_workers,
-                    device=device).start_everything()
+    engine = Engine(num_workers=cfg.train.num_workers, device=device,
+                    group=group).start_everything()
     engine.create_table(
         TableConfig(name="mlp", kind="dense",
                     consistency=cfg.table.consistency,

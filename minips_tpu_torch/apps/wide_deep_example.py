@@ -19,23 +19,33 @@ it in chunks while training runs, and the file is never resident.
 ``--exec multiproc`` (ROADMAP.md queue 1 item 15) is not ported yet and
 raises.
 
+``run(cfg, args, metrics, group)`` runs one rank of a process group (the
+CLI's ``--ranks N``): both hashed tables and the deep tower are
+range-sharded over the ranks. In spmd mode every rank draws the same
+global batch and steps on its rows of it (the batch must divide by the
+group size); in threaded mode rank 0 runs the workers and the other ranks
+serve their table shards (``core/engine.py``). Every rank scores the
+holdout (the pulls are collectives); rank 0 logs it.
+
 Usage: python -m minips_tpu_torch.apps.wide_deep_example --model deepfm \\
     --exec threaded --consistency ssp --staleness 2
+       python -m minips_tpu_torch.apps.wide_deep_example --device cpu \\
+    --ranks 2 --exec threaded
 """
 
 from __future__ import annotations
 
 import torch
 
-from minips_tpu_torch.apps.common import (app_main, holdout_split,
-                                          score_holdout)
+from minips_tpu_torch.apps.common import (app_main, global_batch,
+                                          holdout_split, score_holdout)
 from minips_tpu_torch.core.config import Config, TableConfig, TrainConfig
 from minips_tpu_torch.data import synthetic
 from minips_tpu_torch.data.criteo import (log_transform, read_criteo,
                                           stream_criteo_batches)
 from minips_tpu_torch.data.loader import BatchIterator
 from minips_tpu_torch.models import wide_deep as wd_model
-from minips_tpu_torch.parallel.mesh import DeviceLike, resolve_device
+from minips_tpu_torch.parallel.mesh import DeviceLike, Group, resolve_device
 from minips_tpu_torch.tables.dense import DenseTable
 from minips_tpu_torch.tables.sparse import SparseTable, collision_stats
 from minips_tpu_torch.train.loop import TrainLoop
@@ -52,23 +62,26 @@ NUM_DENSE, NUM_CAT = 13, 26
 
 
 def build(cfg: Config, *, use_fm: bool, seed: int = 0,
-          compute_dtype=None, device: DeviceLike = None):
+          compute_dtype=None, device: DeviceLike = None, group: Group = None):
     """Tables and the fused step for W&D/DeepFM: ``(ps, (wide, emb,
-    deep))``. The deep tower's weights come from a ``torch.Generator``
-    seeded with ``seed + 2`` (the JAX package's ``PRNGKey(seed + 2)``
-    cannot be replayed; parity tests carry its weights across)."""
+    deep))``, every table sharded over ``group``. The deep tower's weights
+    come from a ``torch.Generator`` seeded with ``seed + 2`` (the JAX
+    package's ``PRNGKey(seed + 2)`` cannot be replayed; parity tests carry
+    its weights across)."""
     device = resolve_device(device)
     emb_dim = cfg.table.dim
     wide_t = SparseTable(cfg.table.num_slots, 1, name="wide",
                          updater=cfg.table.updater, lr=cfg.table.lr,
-                         init_scale=0.0, salt=1, seed=seed, device=device)
+                         init_scale=0.0, salt=1, seed=seed, device=device,
+                         group=group)
     emb_t = SparseTable(cfg.table.num_slots, emb_dim, name="emb",
                         updater=cfg.table.updater, lr=cfg.table.lr,
-                        init_scale=0.01, salt=2, seed=seed + 1, device=device)
+                        init_scale=0.01, salt=2, seed=seed + 1, device=device,
+                        group=group)
     gen = torch.Generator().manual_seed(seed + 2)
     deep_t = DenseTable(
         wd_model.init_deep(gen, NUM_CAT, emb_dim, NUM_DENSE, device=device),
-        name="deep", updater="adam", lr=1e-3, device=device)
+        name="deep", updater="adam", lr=1e-3, device=device, group=group)
 
     def loss_fn(deep_params, rows, batch):
         return wd_model.loss(rows["wide"], rows["emb"], deep_params, batch,
@@ -78,7 +91,7 @@ def build(cfg: Config, *, use_fm: bool, seed: int = 0,
                      sparse={"wide": wide_t, "emb": emb_t},
                      key_fns={"wide": lambda b: b["cat"],
                               "emb": lambda b: b["cat"]},
-                     compute_dtype=compute_dtype, device=device)
+                     compute_dtype=compute_dtype, device=device, group=group)
     return ps, (wide_t, emb_t, deep_t)
 
 
@@ -110,7 +123,10 @@ def _log_collisions(metrics, cats, num_slots) -> dict:
     return out
 
 
-def run(cfg: Config, args, metrics) -> dict:
+def run(cfg: Config, args, metrics, group: Group = None) -> dict:
+    """One rank of a training run (``group``: the run's process group,
+    ``None`` for one device); every rank calls it with the same ``cfg``
+    and ``args``."""
     use_fm = getattr(args, "model", "widedeep") == "deepfm"
     mode = getattr(args, "exec_mode", "spmd")
     stream = getattr(args, "stream", False)
@@ -125,7 +141,7 @@ def run(cfg: Config, args, metrics) -> dict:
     device = resolve_device(getattr(args, "device", None))
     if stream:
         return _run_streaming(cfg, args, metrics, path, use_fm=use_fm,
-                              device=device)
+                              device=device, group=group)
     if path:  # real Criteo TSV through the native or Python reader
         raw = read_criteo(path)
         data = {"dense": log_transform(raw["dense"], raw["dense_mask"]),
@@ -137,11 +153,13 @@ def run(cfg: Config, args, metrics) -> dict:
                                   seed=cfg.train.seed)
     if mode == "threaded":
         return _run_threaded(cfg, args, metrics, data, holdout,
-                             use_fm=use_fm, device=device)
+                             use_fm=use_fm, device=device, group=group)
     ps, tables = build(cfg, use_fm=use_fm, seed=cfg.train.seed,
-                       compute_dtype=_compute_dtype(args), device=device)
+                       compute_dtype=_compute_dtype(args), device=device,
+                       group=group)
     _log_collisions(metrics, data["cat"], cfg.table.num_slots)
-    batches = BatchIterator(data, cfg.train.batch_size, seed=cfg.train.seed)
+    batches = BatchIterator(data, global_batch(cfg.train.batch_size, group),
+                            seed=cfg.train.seed)
     loop = TrainLoop(lambda b: ps(ps.shard_batch(b)), batches,
                      metrics=metrics, log_every=cfg.train.log_every,
                      batch_size=cfg.train.batch_size)
@@ -161,7 +179,7 @@ def _compute_dtype(args):
 
 
 def _run_streaming(cfg: Config, args, metrics, path: str, *, use_fm: bool,
-                   device: torch.device) -> dict:
+                   device: torch.device, group: Group) -> dict:
     """One-pass streaming training: a producer thread parses the Criteo
     file in chunks while earlier batches train, and the file is never
     resident (``stream_criteo_batches``). The loop ends at min(num_iters,
@@ -172,14 +190,16 @@ def _run_streaming(cfg: Config, args, metrics, path: str, *, use_fm: bool,
                          "available with --stream (run a separate "
                          "non-stream eval pass)")
     ps, tables = build(cfg, use_fm=use_fm, seed=cfg.train.seed,
-                       compute_dtype=_compute_dtype(args), device=device)
+                       compute_dtype=_compute_dtype(args), device=device,
+                       group=group)
 
     def xform(d):  # on the producer thread
         return {"dense": log_transform(d["dense"], d["dense_mask"]),
                 "cat": d["cat"], "y": d["y"]}
 
     stream_stats: dict = {}
-    batches = stream_criteo_batches(path, cfg.train.batch_size,
+    batches = stream_criteo_batches(path,
+                                    global_batch(cfg.train.batch_size, group),
                                     transform=xform, stats=stream_stats)
     loop = TrainLoop(lambda b: ps(ps.shard_batch(b)), batches,
                      metrics=metrics, log_every=cfg.train.log_every,
@@ -196,12 +216,13 @@ def _run_streaming(cfg: Config, args, metrics, path: str, *, use_fm: bool,
 
 
 def _run_threaded(cfg: Config, args, metrics, data, holdout, *,
-                  use_fm: bool, device: torch.device) -> dict:
+                  use_fm: bool, device: torch.device, group: Group) -> dict:
     """Reference-semantics worker threads: each pulls the batch's rows of
     both hashed tables (two row gathers) and the deep tower through the
     consistency gate, takes the gradients by autograd, pushes them and
     clocks. ``samples_per_sec`` is measured as on the spmd path (the JAX
-    package reports 0.0 here): see ``threaded_train``."""
+    package reports 0.0 here): see ``threaded_train``. Under a group the
+    workers run on rank 0; each pull gathers on every owner's shard."""
     from minips_tpu_torch.apps.common import threaded_train
     from minips_tpu_torch.consistency import make_controller
     from minips_tpu_torch.core.engine import Engine
@@ -209,9 +230,10 @@ def _run_threaded(cfg: Config, args, metrics, data, holdout, *,
     if getattr(args, "dtype", "float32") != "float32":
         raise SystemExit("--dtype is only wired into --exec spmd")
     _, (wide_t, emb_t, deep_t) = build(cfg, use_fm=use_fm,
-                                       seed=cfg.train.seed, device=device)
-    engine = Engine(num_workers=cfg.train.num_workers,
-                    device=device).start_everything()
+                                       seed=cfg.train.seed, device=device,
+                                       group=group)
+    engine = Engine(num_workers=cfg.train.num_workers, device=device,
+                    group=group).start_everything()
     for name, t in (("wide", wide_t), ("emb", emb_t), ("deep", deep_t)):
         engine.register_table(name, t, make_controller(
             cfg.table.consistency, engine.num_workers,

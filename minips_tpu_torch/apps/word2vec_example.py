@@ -16,8 +16,12 @@ pull is the row-gather kernel on the card. Two modes:
   with its own batch stream and sampler seeded ``seed + worker_id``.
 
 ``--data_file`` tokenizes a text file at word level; ``--subsample``
-drops frequent words. ``--exec multiproc`` (ROADMAP.md queue 1 items
-14-15) is not ported yet and raises.
+drops frequent words. ``run(cfg, args, metrics, group)`` runs one rank of
+a process group (the CLI's ``--ranks N``), both tables range-sharded over
+the ranks: in spmd mode every rank draws the same global batch and steps
+on its rows of it, in threaded mode rank 0 runs the workers and the
+other ranks serve (``core/engine.py``). ``--exec multiproc`` (ROADMAP.md
+queue 1 items 14-15) is not ported yet and raises.
 
 Usage: python -m minips_tpu_torch.apps.word2vec_example --num_iters 200
 """
@@ -29,11 +33,12 @@ import time
 import numpy as np
 import torch
 
-from minips_tpu_torch.apps.common import app_main, steady_rate, to_device
+from minips_tpu_torch.apps.common import (app_main, global_batch,
+                                          mean_losses, run_rate, to_device)
 from minips_tpu_torch.core.config import Config, TableConfig, TrainConfig
 from minips_tpu_torch.data import synthetic
 from minips_tpu_torch.models import word2vec as w2v
-from minips_tpu_torch.parallel.mesh import resolve_device
+from minips_tpu_torch.parallel.mesh import Group, resolve_device
 from minips_tpu_torch.tables.sparse import SparseTable
 from minips_tpu_torch.train.loop import TrainLoop
 from minips_tpu_torch.train.ps_step import PSTrainStep
@@ -47,9 +52,11 @@ NEG = 5
 VOCAB = 10_000
 
 
-def make_tables(cfg: Config, device):
-    """The input (``in``) and output (``out``) embedding tables."""
-    mk = dict(updater=cfg.table.updater, lr=cfg.table.lr, device=device)
+def make_tables(cfg: Config, device, group: Group = None):
+    """The input (``in``) and output (``out``) embedding tables, sharded
+    over ``group``."""
+    mk = dict(updater=cfg.table.updater, lr=cfg.table.lr, device=device,
+              group=group)
     return (SparseTable(cfg.table.num_slots, cfg.table.dim, name="in",
                         init_scale=0.01, seed=1, **mk),
             SparseTable(cfg.table.num_slots, cfg.table.dim, name="out",
@@ -93,15 +100,19 @@ def out_keys(pos, neg):
     return torch.cat([pos[:, None], neg], dim=1)
 
 
-def run(cfg: Config, args, metrics) -> dict:
+def run(cfg: Config, args, metrics, group: Group = None) -> dict:
+    """One rank of a training run (``group``: the run's process group,
+    ``None`` for one device); every rank calls it with the same ``cfg``
+    and ``args``."""
     mode = getattr(args, "exec_mode", "spmd")
     if mode == "multiproc":
         raise SystemExit("--exec multiproc is not ported yet (ROADMAP.md "
                          "queue 1 items 14-15: the sharded PS)")
     device = resolve_device(getattr(args, "device", None))
-    in_t, out_t = make_tables(cfg, device)
+    in_t, out_t = make_tables(cfg, device, group)
     if mode == "threaded":
-        return _run_threaded(cfg, args, metrics, in_t, out_t)
+        return _run_threaded(cfg, args, metrics, in_t, out_t, group)
+    global_batch(cfg.train.batch_size, group)
 
     def loss_fn(dense_params, rows, batch):
         # rows["out"]: [B, 1 + NEG, dim]
@@ -114,7 +125,7 @@ def run(cfg: Config, args, metrics) -> dict:
         loss_fn, sparse={"in": in_t, "out": out_t},
         key_fns={"in": lambda b: b["center"],
                  "out": lambda b: out_keys(b["pos"], b["neg"])},
-        grad_scale=cfg.train.batch_size, device=device)
+        grad_scale=cfg.train.batch_size, device=device, group=group)
     batches = batch_gen(cfg, *pairs(cfg, args), cfg.train.seed)
     loop = TrainLoop(lambda b: ps(ps.shard_batch(b)), batches,
                      metrics=metrics, log_every=cfg.train.log_every,
@@ -126,7 +137,7 @@ def run(cfg: Config, args, metrics) -> dict:
             "tables": (in_t, out_t)}
 
 
-def _run_threaded(cfg, args, metrics, in_t, out_t) -> dict:
+def _run_threaded(cfg, args, metrics, in_t, out_t, group) -> dict:
     """Worker threads, the reference's literal "async push" word2vec:
     every thread pulls rows, pushes its SGNS gradients (scaled by B / NW)
     and, under ASP, never blocks. ``samples_per_sec`` leaves out each
@@ -136,15 +147,14 @@ def _run_threaded(cfg, args, metrics, in_t, out_t) -> dict:
     from minips_tpu_torch.core.engine import Engine, MLTask
 
     device = in_t.device
-    engine = Engine(num_workers=cfg.train.num_workers,
-                    device=device).start_everything()
+    engine = Engine(num_workers=cfg.train.num_workers, device=device,
+                    group=group).start_everything()
     for name, t in (("in", in_t), ("out", out_t)):
         # --consistency/--staleness (asp is the reference's configuration)
         engine.register_table(name, t, make_controller(
             cfg.table.consistency, engine.num_workers,
             staleness=cfg.table.staleness, sync_every=0))
     centers, contexts, counts = pairs(cfg, args)
-    starts = [[] for _ in range(engine.num_workers)]
     # the sum of per-sample gradients (the mean loss's times B, the spmd
     # path's grad_scale) over the NW workers that push once per clock: the
     # JAX package pushes B x the gradient from every worker, an NW-times
@@ -157,9 +167,9 @@ def _run_threaded(cfg, args, metrics, in_t, out_t) -> dict:
         it_, ot = info.table("in"), info.table("out")
         batches = batch_gen(cfg, centers, contexts, counts,
                             cfg.train.seed + info.worker_id)
-        losses = []
+        losses, starts = [], []
         for _ in range(cfg.train.num_iters):
-            starts[info.worker_id].append(time.perf_counter())
+            starts.append(time.perf_counter())
             b = to_device(next(batches), device)
             keys = out_keys(b["pos"], b["neg"])
             c_rows = it_.pull(keys=b["center"])  # gated per consistency
@@ -171,20 +181,16 @@ def _run_threaded(cfg, args, metrics, in_t, out_t) -> dict:
             it_.clock()
             ot.clock()
             losses.append(float(loss))
-        return losses
+        return losses, starts
 
     per_worker = engine.run(MLTask(fn=udf))
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-    samples_per_sec = steady_rate(
-        starts, [cfg.train.batch_size] * engine.num_workers,
-        time.perf_counter())
+    samples_per_sec = run_rate(
+        engine, [s for _, s in per_worker],
+        [cfg.train.batch_size] * engine.num_workers)
     engine.stop_everything()
-    n = min(len(v) for v in per_worker)
-    mean_losses = [float(np.mean([w[i] for w in per_worker]))
-                   for i in range(n)]
-    metrics.log(final_loss=mean_losses[-1], samples_per_sec=samples_per_sec)
-    return {"losses": mean_losses, "samples_per_sec": samples_per_sec,
+    losses = mean_losses([w for w, _ in per_worker])
+    metrics.log(final_loss=losses[-1], samples_per_sec=samples_per_sec)
+    return {"losses": losses, "samples_per_sec": samples_per_sec,
             "tables": (in_t, out_t)}
 
 

@@ -13,14 +13,18 @@ import os
 from typing import Any, Optional
 
 from minips_tpu_torch.ckpt.checkpoint import Checkpointer
+from minips_tpu_torch.parallel.mesh import Group
 
 
 def make_checkpointer(directory: str, tables: dict[str, Any],
                       controllers: Optional[dict[str, Any]] = None,
                       *, keep: int = 3, async_save: bool = False,
-                      backend: Optional[str] = None) -> Checkpointer:
+                      backend: Optional[str] = None,
+                      group: Group = None) -> Checkpointer:
     """``backend`` = "native" (npz dirs, the default), from
-    ``$MINIPS_CKPT_BACKEND`` when not given. "orbax" is not ported yet."""
+    ``$MINIPS_CKPT_BACKEND`` when not given. "orbax" is not ported yet.
+    ``group``: the process group the tables are sharded over (rank 0
+    writes, every rank restores); ``None`` is one device."""
     backend = backend or os.environ.get("MINIPS_CKPT_BACKEND", "native")
     if backend == "orbax":
         raise NotImplementedError(
@@ -31,4 +35,4 @@ def make_checkpointer(directory: str, tables: dict[str, Any],
         raise ValueError(f"unknown checkpoint backend {backend!r} "
                          "(expected 'native' or 'orbax')")
     return Checkpointer(directory, tables, controllers, keep=keep,
-                        async_save=async_save)
+                        async_save=async_save, group=group)

@@ -16,6 +16,16 @@ what a checkpoint holds:
 
 Recovery = construct the same tables, ``restore()`` the newest step that
 reads whole (walking back past a torn one), resume the loop at ``step``.
+
+Under a process group (``group=``, the group the tables are sharded
+over) every rank calls ``save`` and ``restore``: a table's
+``state_dict()`` gathers its shards (a collective), rank 0 alone writes
+and publishes the step directory and prunes old ones, and every rank then
+waits at the group's barrier, so that no rank reads a step before it is
+published; the clocks written are rank 0's controllers'. An async save
+runs its writer thread on rank 0 and ``wait()`` ends in the barrier.
+Every rank restores: the ranks share one host and its filesystem, each
+reads the global state and ``load_state_dict`` keeps its shard.
 Resharding across world sizes (``ckpt/elastic.py``) waits for the
 multi-process port (ROADMAP.md queue 1 item 14).
 """
@@ -31,12 +41,18 @@ from typing import Any, Optional
 
 import numpy as np
 
+from minips_tpu_torch.parallel.mesh import Group, barrier, world
+
 
 class Checkpointer:
     def __init__(self, directory: str, tables: dict[str, Any],
                  controllers: Optional[dict[str, Any]] = None,
-                 *, keep: int = 3, async_save: bool = False):
+                 *, keep: int = 3, async_save: bool = False,
+                 group: Group = None):
         self.dir = directory
+        self.group = group
+        self._writes = world(group)[0] == 0  # rank 0 publishes
+        self._pending = False
         self.tables = tables
         self.controllers = controllers or {}
         self.keep = keep
@@ -47,22 +63,33 @@ class Checkpointer:
     # ------------------------------------------------------------------ save
     def save(self, step: int) -> str:
         """Snapshot to host, then (a)synchronously write + atomically
-        publish ``step_<step>/``."""
+        publish ``step_<step>/`` (under a group: every rank calls it, rank
+        0 writes)."""
         snap = {name: t.state_dict() for name, t in self.tables.items()}
         clocks = {name: c.state_dict() for name, c in self.controllers.items()}
         if self.async_save:
             self.wait()  # one save in flight at a time
-            self._thread = threading.Thread(
-                target=self._write, args=(step, snap, clocks), daemon=True)
-            self._thread.start()
+            if self._writes:
+                self._thread = threading.Thread(
+                    target=self._write, args=(step, snap, clocks),
+                    daemon=True)
+                self._thread.start()
+            self._pending = True
         else:
-            self._write(step, snap, clocks)
+            if self._writes:
+                self._write(step, snap, clocks)
+            barrier(self.group)
         return self._step_dir(step)
 
     def wait(self) -> None:
+        """Until an async save is published (on every rank of a
+        group)."""
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        if self._pending:
+            self._pending = False
+            barrier(self.group)
 
     def close(self) -> None:
         """Flush a pending async save."""
@@ -97,11 +124,11 @@ class Checkpointer:
         steps above the agreed step belong to a dead incarnation — left
         in place, a later crash could negotiate onto a step whose shards
         mix incarnations (a torn table nothing would detect)."""
-        pruned = []
-        for s in self.list_steps():
-            if s > step:
+        pruned = [s for s in self.list_steps() if s > step]
+        if self._writes:
+            for s in pruned:
                 shutil.rmtree(self._step_dir(s), ignore_errors=True)
-                pruned.append(s)
+        barrier(self.group)
         return pruned
 
     # --------------------------------------------------------------- restore

@@ -15,6 +15,10 @@ the JAX functions. Each in-place write is marked below.
 On the card ``index_add_`` sums duplicate slots with atomics in no fixed
 order, so a row touched many times can differ from the CPU in the last
 bits; that, not the algorithm, is the on-card tolerance.
+
+A push may touch no row at all: an owner whose shard none of a push's keys
+hash into (``tables/sparse.py`` over a process group) gets zero slots, and
+each update is then the identity.
 """
 
 from __future__ import annotations
@@ -33,6 +37,9 @@ def dedup_segment_sum(slots: torch.Tensor, grads: torch.Tensor):
     valid; invalid entries have summed == 0 so scatter-adds are no-ops."""
     slots = slots.reshape(-1)
     n = slots.shape[0]
+    if n == 0:
+        return slots, grads.reshape(0, grads.shape[-1]), torch.zeros(
+            0, dtype=torch.bool, device=slots.device)
     grads = grads.reshape(n, -1)
     order = torch.argsort(slots, stable=True)
     s_sorted = slots[order]
@@ -53,7 +60,7 @@ def row_sgd(emb: torch.Tensor, slots: torch.Tensor, grads: torch.Tensor,
             lr: float) -> torch.Tensor:
     """SGD scatter: duplicates accumulate natively under scatter-add."""
     flat = slots.reshape(-1)
-    step = -lr * grads.reshape(flat.shape[0], -1).to(emb.dtype)
+    step = -lr * grads.reshape(flat.shape[0], emb.shape[1]).to(emb.dtype)
     return emb.index_add_(0, flat, step)  # in place: emb
 
 
@@ -80,7 +87,7 @@ def row_adagrad(emb: torch.Tensor, accum: torch.Tensor, slots: torch.Tensor,
 def _scatter_dense(emb, slots, grads):
     flat = slots.reshape(-1)
     return torch.zeros_like(emb).index_add_(
-        0, flat, grads.reshape(flat.shape[0], -1).to(emb.dtype))
+        0, flat, grads.reshape(flat.shape[0], emb.shape[1]).to(emb.dtype))
 
 
 def _row_adagrad_dense(emb, accum, slots, grads, lr, eps):

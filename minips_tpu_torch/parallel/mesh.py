@@ -17,7 +17,10 @@ device, which runs no collective at all.
   ``n``-device mesh, used by the tests (gloo on the CPU) and by
   ``chip_smoke.py`` (NCCL).
 - :func:`all_gather`, :func:`all_to_all` and :func:`all_reduce_sum` are
-  the collectives the tables use; each is the identity under ``None``.
+  the collectives the tables use, :func:`broadcast`,
+  :func:`broadcast_object` and :func:`barrier` those of the Engine and the
+  checkpointer; each is the identity under ``None``. :func:`shard_batch`
+  takes a rank's rows of a global batch.
 - :func:`ppermute`, :func:`all_to_all_axes`, :func:`reduce_from_group`,
   :func:`copy_to_group` and :func:`pmean` are the collectives of the
   parallel schedules (ring and all-to-all attention, GPipe, tensor and
@@ -213,7 +216,62 @@ def run_ranks(fn: Callable[..., Any], world_size: int, *args,
     return out
 
 
+def group_device(group: Group) -> torch.device:
+    """The device of this rank of ``group``: the CPU under gloo, the
+    rank's current card under NCCL (``init_group`` sets it); the card
+    under ``None``."""
+    if group is not None and dist.get_backend(group) == "gloo":
+        return torch.device("cpu")
+    return resolve_device(None)
+
+
+def shard_batch(batch, group: Group, device: DeviceLike = None):
+    """This rank's rows of a global batch (a dict of numpy arrays or
+    tensors, nested or not), on ``device``: rows ``[r*B/n, (r+1)*B/n)`` of
+    every leaf, the whole batch under ``None``. B must divide by the group
+    size."""
+    if isinstance(batch, dict):
+        return {k: shard_batch(v, group, device) for k, v in batch.items()}
+    x = batch if torch.is_tensor(batch) else torch.as_tensor(batch)
+    rank, n = world(group)
+    if n > 1:
+        b = x.shape[0]
+        if b % n:
+            raise ValueError(f"batch dim {b} must divide by the group "
+                             f"size {n}")
+        x = x[rank * (b // n):(rank + 1) * (b // n)]
+    return x.to(resolve_device(device))
+
+
 # -------------------------------------------------------------- collectives
+def broadcast(x: torch.Tensor, src: int, group: Group) -> torch.Tensor:
+    """Group rank ``src``'s ``x`` on every rank, written into ``x`` (which
+    every other rank allocates at the same shape and dtype) and returned;
+    ``x`` itself under ``None``."""
+    if group is None:
+        return x
+    dist.broadcast(x, src=_global(group, src), group=group)
+    return x
+
+
+def broadcast_object(obj: Any, src: int, group: Group) -> Any:
+    """Group rank ``src``'s picklable ``obj`` on every rank (the other
+    ranks pass anything); ``obj`` itself on a world of one. For results at
+    the end of a run, not for tensors on the hot path."""
+    if world(group)[1] == 1:
+        return obj
+    box = [obj]
+    dist.broadcast_object_list(box, src=_global(group, src), group=group)
+    return box[0]
+
+
+def barrier(group: Group) -> None:
+    """Every rank of ``group`` waits here for the others; nothing under
+    ``None``."""
+    if group is not None:
+        dist.barrier(group)
+
+
 def all_gather(x: torch.Tensor, group: Group) -> torch.Tensor:
     """``[*s] -> [n, *s]``: every rank's ``x`` stacked in rank order."""
     if group is None:

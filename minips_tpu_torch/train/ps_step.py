@@ -49,14 +49,13 @@ from __future__ import annotations
 
 from typing import Any, Callable, Optional
 
-import numpy as np
 import torch
 
 from minips_tpu_torch.ops.quantized_comm import (quantized_all_gather,
                                                  quantized_psum_scatter)
 from minips_tpu_torch.parallel.mesh import (DeviceLike, Group,
                                             all_reduce_sum, resolve_device,
-                                            same_device, world)
+                                            same_device, shard_batch, world)
 from minips_tpu_torch.tables.dense import DenseTable, cast_floating
 from minips_tpu_torch.tables.sparse import SparseTable
 
@@ -194,14 +193,4 @@ class PSTrainStep:
         tensors), on the step's device: rows ``[r*B/n, (r+1)*B/n)`` of
         every leaf (the whole batch under ``group=None``). B must divide
         by the group size."""
-        if isinstance(batch, dict):
-            return {k: self.shard_batch(v) for k, v in batch.items()}
-        x = batch if torch.is_tensor(batch) else \
-            torch.as_tensor(np.asarray(batch))
-        if self.group is not None:
-            b, n = x.shape[0], self.world_size
-            if b % n:
-                raise ValueError(f"batch dim {b} must divide by the group "
-                                 f"size {n}")
-            x = x[self.rank * (b // n):(self.rank + 1) * (b // n)]
-        return x.to(self.device)
+        return shard_batch(batch, self.group, self.device)

@@ -147,8 +147,8 @@ def test_mf_app_matches_jax_from_the_same_weights(monkeypatch, mode):
     jc, tc = _cfgs(jmfx.DEFAULT, mode, batch_size=512)
     orig = tmfx.make_tables
 
-    def make_tables(cfg, users, items, device):
-        u, i = orig(cfg, users, items, device)
+    def make_tables(cfg, users, items, device, group=None):
+        u, i = orig(cfg, users, items, device, group)
         ju, ji = jmfx._make_tables(jc, jmfx.make_mesh(), users, items)
         interop.load_sparse(u, ju.state_dict())
         interop.load_sparse(i, ji.state_dict())
@@ -173,8 +173,8 @@ def test_word2vec_app_matches_jax_from_the_same_weights(monkeypatch, mode):
     orig = tw2vx.make_tables
     from minips_tpu.tables.sparse import SparseTable as JSparse
 
-    def make_tables(cfg, device):
-        i, o = orig(cfg, device)
+    def make_tables(cfg, device, group=None):
+        i, o = orig(cfg, device, group)
         ji = JSparse(jc.table.num_slots, jc.table.dim, jw2vx.make_mesh(),
                      name="in", updater=jc.table.updater, lr=jc.table.lr,
                      init_scale=0.01, seed=1)
