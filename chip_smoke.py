@@ -190,6 +190,27 @@ raises on failure:
     losses equal the uninterrupted run's, one step directory per save,
     K2-K4 launched in the resumed run as ``want_launches`` counts them.
 
+27. the host control plane (``comm/``, ``consistency/gate.py``,
+    ``obs/``) between 2 spawned processes on the one card, each stepping
+    the LR + MLP pair at full width from seed 0, once on the shm bus
+    (where the host is x86-64) and once on the native mailbox, each
+    under reliable delivery and seeded chaos (``drop=0.01``): a heartbeat
+    monitor, ``ClockGossip`` and the SSP gate at s = 2, 50 clocks as
+    ``SSPTrainer.step`` runs them without the parameter exchange (step,
+    publish the clock, wait at the gate; process 1 20 ms slower a step),
+    then ``publish_clock(..., retired=True)``; no step admitted more than
+    2 clocks ahead of the global minimum, no frame lost while chaos
+    dropped some and the layer retransmitted, K1 twice a step in each
+    process, finite and falling losses, ``obs/merge`` of the two traces
+    (``MINIPS_TRACE``) estimating a clock offset from the heartbeats and
+    linking the round trips' flows, ``obs/report`` charging gate-blocked
+    time to the slow process; the median and p99 of 200 directed round
+    trips and of the gate's wait per clock, the pair's step time, the
+    gate's counts; then the peer-failure drill on the native bus:
+    ``MINIPS_CHAOS_KILL`` kills process 1 at clock 30, and process 0's
+    gate must raise ``PeerFailureError({1})`` within the heartbeat's
+    timeout and a poll, with ``gate_peer_failure`` in its flight box.
+
 ``python3 chip_smoke.py --ranks N`` runs phases 22-23 and then 24-26 on
 N cards of one machine, one NCCL rank each: the LR + MLP pair at 65,536
 rows per card and at 65,536 in all, Wide&Deep spmd and threaded (rank 0
@@ -365,6 +386,28 @@ PAR_LOSS_TOL = 2e-3
 WD_SSP = 2
 LM_CKPT_DEPTH, LM_CKPT_ITERS = 1, 6
 PAIR_ONE_CARD_BATCH = B
+# phase 27: the host control plane between CP_PROCS processes on the one
+# card, each stepping the LR + MLP pair at B; every bus under reliable
+# delivery and seeded chaos, a heartbeat monitor (interval, timeout in s)
+# and the SSP gate at s = CP_STALENESS; process 1 spends CP_SLOW_MS more
+# host time a step, so that the gate blocks; CP_PINGS directed round trips
+# timed before the clocks; the drill kills process 1 at CP_KILL_CLOCK
+CP_PROCS = 2
+CP_CLOCKS = 50
+CP_STALENESS = 2
+CP_CHAOS = "2718:drop=0.01"
+CP_HB_INTERVAL, CP_HB_TIMEOUT = 0.1, 1.0
+CP_GATE_TIMEOUT = 60.0
+CP_SLOW_MS = 20.0
+CP_PINGS = 200
+CP_KILL_CLOCK = 30
+CP_WARM_STEPS = 2
+# the drill's bound on the gate's block, from its start to the raise: the
+# heartbeat's timeout, one poll of the gate (it consults the monitor after
+# each wait of min(1 s, its timeout)), and 0.5 s for the rest of the killed
+# process's last step and the scheduling of two threads
+CP_DETECT_S = CP_HB_TIMEOUT + 1.0 + 0.5
+CP_SPAWN_TIMEOUT = 300.0
 
 
 def check(cond: bool, msg: str) -> None:
@@ -1949,6 +1992,377 @@ def app_group_phases(group, dev, cfg) -> dict:
     return out
 
 
+def free_ports(n: int) -> list:
+    """``n`` loopback TCP ports the OS reports free, held open together
+    while chosen so that they differ."""
+    import socket
+
+    socks = []
+    try:
+        for _ in range(n):
+            sk = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
+            sk.bind(("127.0.0.1", 0))
+            socks.append(sk)
+        return [sk.getsockname()[1] for sk in socks]
+    finally:
+        for sk in socks:
+            sk.close()
+
+
+def p99(xs) -> float:
+    """The 99th percentile of ``xs`` (linear between ranks)."""
+    return statistics.quantiles(xs, n=100, method="inclusive")[98]
+
+
+def control_plane_proc(rank: int, cfg: dict, results) -> None:
+    """Process ``rank`` of phase 27, spawned: its environment, then
+    ``control_plane_rank``; the result or the traceback goes back on
+    ``results``."""
+    import traceback
+
+    os.environ.update(cfg["env"])
+    sys.path.insert(0, REPO)
+    try:
+        results.put((rank, True, control_plane_rank(rank, cfg)))
+    except BaseException:  # noqa: BLE001 - reported to the parent
+        results.put((rank, False, traceback.format_exc()))
+
+
+def control_plane_rank(rank: int, cfg: dict) -> dict:
+    """One process of phase 27 on ``cuda:0``: the LR + MLP pair at full
+    width from seed 0, a bus of ``cfg["backend"]`` under reliable delivery
+    and CP_CHAOS, a heartbeat monitor, ``ClockGossip`` and the SSP gate;
+    rank 0 times CP_PINGS directed round trips (a flow per ping in the
+    trace); then the clocks as ``SSPTrainer.step`` runs them without the
+    parameter exchange: step, publish the clock, wait at the gate. At the
+    end the process retires its clock and waits for its peers' and for
+    every repair. When ``MINIPS_CHAOS_KILL`` kills a peer, the gate's
+    ``PeerFailureError`` ends this process's run and is returned, never
+    stepped past."""
+    import threading
+
+    import torch
+
+    from minips_tpu_torch.apps.lrmlp import build_lrmlp
+    from minips_tpu_torch.comm.bus import ClockGossip, make_bus
+    from minips_tpu_torch.comm.chaos import install_chaos_kill
+    from minips_tpu_torch.comm.heartbeat import HeartbeatMonitor
+    from minips_tpu_torch.consistency.gate import (RETIRED_CLOCK,
+                                                   PeerFailureError,
+                                                   StalenessGate,
+                                                   publish_clock)
+    from minips_tpu_torch.obs import flight, tracer
+    from minips_tpu_torch.ops.gather import gather_rows
+
+    n = cfg["procs"]
+    dev = torch.device("cuda", 0)
+    trc = tracer.maybe_init(rank)
+    flight.maybe_init(rank)
+    pair = build_lrmlp(cfg["batch"], dev, seed=0)
+    for i in range(CP_WARM_STEPS):  # CUDA and cuBLAS set-up off the clock
+        pair.lr_step(pair.batches[i % 2])
+        pair.mlp_step(pair.batches[i % 2])
+    torch.cuda.synchronize()
+    addrs = [f"tcp://127.0.0.1:{port}" for port in cfg["ports"]]
+    bus = make_bus(addrs[rank], [a for i, a in enumerate(addrs)
+                                 if i != rank], my_id=rank,
+                   backend=cfg["backend"], chaos=CP_CHAOS, reliable="1")
+    out = {"rank": rank, "backend": type(bus).__name__}
+    pongs: dict = {}
+    pong_cv = threading.Condition()
+    pings_done = threading.Event()
+
+    def on_ping(sender, payload):
+        if trc is not None:
+            trc.flow("f", tracer.flow_id("ping", sender, payload["i"]),
+                     "ping")
+        bus.send(sender, "pong", {"i": payload["i"]})
+
+    def on_pong(sender, payload):
+        with pong_cv:
+            pongs[payload["i"]] = time.perf_counter()
+            pong_cv.notify_all()
+
+    bus.on("ping", on_ping)
+    bus.on("pong", on_pong)
+    bus.on("pings_done", lambda s, p: pings_done.set())
+    try:
+        bus.start()
+        bus.handshake(n, timeout=60.0)
+        gossip = ClockGossip(bus, n, workers_per_process=1)
+        mon = HeartbeatMonitor(bus, list(range(n)), interval=CP_HB_INTERVAL,
+                               timeout=CP_HB_TIMEOUT).start()
+        gate = StalenessGate(gossip, CP_STALENESS, timeout=CP_GATE_TIMEOUT,
+                             monitor=mon)
+        kill = install_chaos_kill(rank, n)
+        # ---- directed round trips, rank 0 to rank 1 (1's handler replies)
+        if rank == 0:
+            rtt = []
+            for i in range(CP_PINGS):
+                if trc is not None:
+                    trc.flow("s", tracer.flow_id("ping", 0, i), "ping")
+                t0 = time.perf_counter()
+                bus.send(1, "ping", {"i": i})
+                with pong_cv:
+                    check(pong_cv.wait_for(lambda: i in pongs, 30.0),
+                          f"phase 27 {cfg['backend']}: ping {i} unanswered")
+                rtt.append((pongs[i] - t0) * 1e6)
+            out["rtt_us"] = rtt
+            bus.publish("pings_done", {})
+        else:
+            check(pings_done.wait(120.0), f"phase 27 {cfg['backend']}: "
+                  "rank 0's pings never finished")
+        # ---- the clocks
+        torch.cuda.synchronize()
+        gather_rows.launches = 0
+        losses, step_ms, wait_ms, admitted = [], [], [], 0
+        clock = 0
+        try:
+            for clock in range(1, CP_CLOCKS + 1):
+                t0 = time.perf_counter()
+                b = pair.batches[clock % 2]
+                losses.append((pair.lr_step(b), pair.mlp_step(b)))
+                torch.cuda.synchronize()
+                step_ms.append((time.perf_counter() - t0) * 1e3)
+                if rank == 1:
+                    time.sleep(CP_SLOW_MS / 1e3)
+                if kill is not None:
+                    kill(clock)  # SIGKILL before the clock frame goes out
+                gossip.publish_local([clock])
+                t1 = time.perf_counter()
+                gate.wait(clock)
+                wait_ms.append((time.perf_counter() - t1) * 1e3)
+                admitted = max(admitted, clock - gossip.global_min())
+        except PeerFailureError as e:
+            out["peer_failure"] = {
+                "dead": sorted(e.dead), "clock": clock,
+                "blocked_s": time.perf_counter() - t1}
+        out.update(
+            k1=gather_rows.launches, clocks=clock,
+            losses=[(float(a), float(c)) for a, c in losses],
+            step_ms=step_ms, gate_wait_ms=wait_ms,
+            admitted_skew_max=admitted, gate_waits=gate.gate_waits,
+            max_skew_seen=gate.max_skew_seen)
+        if "peer_failure" not in out:
+            publish_clock(gossip, clock, True)
+            check(gossip.wait_global_min(RETIRED_CLOCK, timeout=30.0),
+                  f"phase 27 {cfg['backend']}: peers never retired: "
+                  f"{gossip.snapshot()}")
+            deadline = time.monotonic() + 15.0
+            while bus.reliable.outstanding_gaps() and \
+                    time.monotonic() < deadline:
+                time.sleep(0.01)
+            out["dead_seen"] = sorted(mon.dead)
+        mon.stop()
+        out.update(frames_lost=bus.frames_lost,
+                   frames_malformed=bus.frames_malformed,
+                   reliable=bus.reliable.snapshot(),
+                   chaos=bus.chaos.snapshot(), bytes_sent=bus.bytes_sent)
+    finally:
+        bus.close()
+        tracer.dump_now()
+        flight.dump_now()
+    return out
+
+
+def spawn_control_plane(backend: str, kill: bool) -> list:
+    """Phase 27's CP_PROCS processes, spawned, on one bus of ``backend``;
+    their traces and flight boxes under ``build/chip_smoke_cp/``. Returns
+    each process's result by rank (None for the one the drill kills). No
+    child outlives the call; a leftover shm segment of a killed process is
+    removed."""
+    import glob
+    import multiprocessing as mp
+    import queue
+
+    from minips_tpu_torch.comm import shm_bus
+
+    tag = f"{backend}{'_drill' if kill else ''}"
+    root = os.path.join(REPO, "build", "chip_smoke_cp", tag)
+    shutil.rmtree(root, ignore_errors=True)
+    run_id = f"chipsmoke{os.getpid()}{tag}"
+    cfg = {"procs": CP_PROCS, "batch": B, "backend": backend,
+           "ports": free_ports(CP_PROCS),
+           "env": {"MINIPS_TRACE": os.path.join(root, "trace"),
+                   "MINIPS_FLIGHT": os.path.join(root, "flight"),
+                   "MINIPS_RUN_ID": run_id, "MINIPS_HEARTBEAT": "",
+                   "MINIPS_CHAOS_KILL": f"7:rank=1,step={CP_KILL_CLOCK}"
+                   if kill else ""}}
+    ctx = mp.get_context("spawn")
+    results = ctx.Queue()
+    procs = [ctx.Process(target=control_plane_proc, args=(r, cfg, results),
+                         daemon=True) for r in range(CP_PROCS)]
+    for p in procs:
+        p.start()
+    want = {0} if kill else set(range(CP_PROCS))
+    out: list = [None] * CP_PROCS
+    deadline = time.monotonic() + CP_SPAWN_TIMEOUT
+    try:
+        while want:
+            try:
+                rank, ok, value = results.get(timeout=1.0)
+            except queue.Empty:
+                check(time.monotonic() < deadline, f"phase 27 {tag}: no "
+                      f"result within {CP_SPAWN_TIMEOUT} s")
+                for r in want:
+                    check(procs[r].exitcode is None, f"phase 27 {tag}: "
+                          f"process {r} exited with code "
+                          f"{procs[r].exitcode} before returning")
+                continue
+            check(ok, f"phase 27 {tag}: process {rank} failed:\n{value}")
+            out[rank] = value
+            want.discard(rank)
+        for p in procs:
+            p.join(timeout=30.0)
+        if kill:
+            check(procs[1].exitcode == -9, f"phase 27 {tag}: process 1 "
+                  f"ended with {procs[1].exitcode}, not by the drill's kill")
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+            p.join()
+        results.close()
+        for path in glob.glob(os.path.join(shm_bus._shm_dir(),
+                                           f"minips_bus_{run_id}_*")):
+            os.remove(path)
+    for r in out:
+        if r is not None:
+            r["trace_dir"] = cfg["env"]["MINIPS_TRACE"]
+            r["flight_dir"] = cfg["env"]["MINIPS_FLIGHT"]
+    return out
+
+
+def control_plane_phase(card: str) -> dict:
+    """Phase 27: the host control plane between CP_PROCS processes that
+    each step the LR + MLP pair on the card, once per bus backend (shm
+    where the host is x86-64, and the native mailbox), then the
+    peer-failure drill on the native bus. Checks, each of which raises:
+    no step admitted more than CP_STALENESS clocks ahead of the global
+    minimum; no frame lost under reliable delivery while chaos dropped
+    some and the layer retransmitted; K1 twice per step in each process;
+    finite and falling losses; ``obs/merge`` of the ranks' traces
+    estimates a clock offset from the heartbeats and links a flow;
+    ``obs/report`` charges gate-blocked time to a peer. The drill: rank
+    0's gate raises ``PeerFailureError({1})`` within CP_DETECT_S of
+    blocking and its flight box holds ``gate_peer_failure``. Returns each
+    backend's numbers and K1's launches by process."""
+    import platform
+
+    from minips_tpu_torch.obs import flight, merge, report
+
+    mach = platform.machine().lower()
+    backends = ["native"]
+    if mach in ("x86_64", "amd64"):
+        backends.insert(0, "shm")
+    else:
+        print(f"control plane (phase 27): this host is {mach!r}, and the "
+              "shm bus refuses hosts that are not x86-64 (its ring needs "
+              "total store order): the native bus only", flush=True)
+    rows, k1 = {}, {}
+    for backend in backends:
+        t0 = time.perf_counter()
+        res = spawn_control_plane(backend, kill=False)
+        took = time.perf_counter() - t0
+        tag = f"phase 27 {backend}"
+        for r in res:
+            rk = r["rank"]
+            check(r["clocks"] == CP_CLOCKS, f"{tag}: rank {rk} ran "
+                  f"{r['clocks']} of {CP_CLOCKS} clocks")
+            check(r["admitted_skew_max"] <= CP_STALENESS, f"{tag}: rank "
+                  f"{rk} admitted a step {r['admitted_skew_max']} clocks "
+                  f"ahead of the global minimum (s = {CP_STALENESS})")
+            check(r["max_skew_seen"] <= CP_STALENESS + 1, f"{tag}: rank "
+                  f"{rk} saw a skew of {r['max_skew_seen']} at its gate")
+            check(r["frames_lost"] == 0 and r["frames_malformed"] == 0,
+                  f"{tag}: rank {rk} lost {r['frames_lost']} and dropped "
+                  f"{r['frames_malformed']} malformed frames")
+            check(r["dead_seen"] == [], f"{tag}: rank {rk}'s monitor "
+                  f"convicted {r['dead_seen']}")
+            check(r["k1"] == 2 * CP_CLOCKS, f"{tag}: rank {rk} launched K1 "
+                  f"{r['k1']} times in {CP_CLOCKS} steps, expected "
+                  f"{2 * CP_CLOCKS}")
+            losses = r["losses"]
+            w = CP_CLOCKS // 4
+            check(all(math.isfinite(x) for p in losses for x in p)
+                  and all(sum(p[j] for p in losses[-w:])
+                          < sum(p[j] for p in losses[:w]) for j in (0, 1)),
+                  f"{tag}: rank {rk}'s losses did not fall: {losses}")
+            k1[f"control_plane_{backend}_rank{rk}"] = r["k1"]
+        dropped = sum(r["chaos"]["dropped"] for r in res)
+        retrans = sum(r["reliable"]["retransmits_got"] for r in res)
+        check(dropped > 0 and retrans > 0, f"{tag}: chaos dropped {dropped}"
+              f" frames and {retrans} were retransmitted; both must be > 0")
+        check(res[0]["gate_waits"] > 0, f"{tag}: rank 0's gate never "
+              "blocked on the slower rank 1")
+        doc, summary = merge.merge_traces([res[0]["trace_dir"]])
+        check(summary["ranks"] == list(range(CP_PROCS))
+              and not summary["unaligned_ranks"]
+              and summary["flows_linked"] >= 1,
+              f"{tag}: merge of the rank traces: {summary}")
+        attr = report.attribute(doc)
+        gate_us = {rk: {k: v for k, v in a["by"].items()
+                        if k.startswith("gate ")} for rk, a in attr.items()}
+        check(gate_us.get(0, {}).get("gate 1", 0) > 0, f"{tag}: report "
+              f"charged no gate-blocked time of rank 0 to rank 1: {attr}")
+        rtt = res[0]["rtt_us"]
+        waits = [x for r in res for x in r["gate_wait_ms"]]
+        steps = [x for r in res for x in r["step_ms"]]
+        rows[backend] = {
+            "bus": res[0]["backend"], "seconds": took,
+            "rtt_us_p50": statistics.median(rtt), "rtt_us_p99": p99(rtt),
+            "gate_wait_ms_p50": statistics.median(waits),
+            "gate_wait_ms_p99": p99(waits),
+            "gate_wait_ms_p50_by_rank": [
+                statistics.median(r["gate_wait_ms"]) for r in res],
+            "gate_wait_ms_p99_by_rank": [p99(r["gate_wait_ms"])
+                                         for r in res],
+            "step_ms_p50": statistics.median(steps),
+            "step_ms_p50_by_rank": [statistics.median(r["step_ms"])
+                                    for r in res],
+            "gate_waits": [r["gate_waits"] for r in res],
+            "max_skew_seen": [r["max_skew_seen"] for r in res],
+            "admitted_skew_max": [r["admitted_skew_max"] for r in res],
+            "chaos_dropped": dropped, "retransmits_got": retrans,
+            "frames_lost": [r["frames_lost"] for r in res],
+            "k1": [r["k1"] for r in res],
+            "loss_first_last": [[r["losses"][0], r["losses"][-1]]
+                                for r in res],
+            "merge": {k: summary[k] for k in (
+                "events", "flows_linked", "clock_offsets_us")},
+            "gate_blocked_us": gate_us}
+        print(f"control plane on {backend} (phase 27, {CP_PROCS} processes "
+              f"on one card, {CP_CLOCKS} clocks, s = {CP_STALENESS}, "
+              f"chaos {CP_CHAOS!r} under reliable delivery; host times on "
+              f"{card}): " + json.dumps(rows[backend]), flush=True)
+    # ---- the peer-failure drill: process 1 killed at CP_KILL_CLOCK
+    t0 = time.perf_counter()
+    res = spawn_control_plane(backends[-1], kill=True)
+    took = time.perf_counter() - t0
+    head = res[0]
+    pf = head.get("peer_failure")
+    check(pf is not None, f"phase 27 drill: rank 0 ran {head['clocks']} "
+          "clocks past process 1's kill without PeerFailureError")
+    check(pf["dead"] == [1] and pf["blocked_s"] <= CP_DETECT_S,
+          f"phase 27 drill: PeerFailureError({pf['dead']}) after "
+          f"{pf['blocked_s']:.3f} s at the gate (want [1] within "
+          f"{CP_DETECT_S} s)")
+    check(head["k1"] == 2 * pf["clock"], f"phase 27 drill: K1 launched "
+          f"{head['k1']} times in {pf['clock']} steps")
+    boxes = flight.load_dumps([head["flight_dir"]])
+    reasons = [e["kind"] for e in boxes.get(0, {}).get("reasons", [])]
+    check("gate_peer_failure" in reasons, f"phase 27 drill: rank 0's "
+          f"flight box holds {reasons}, not gate_peer_failure")
+    drill = {"bus": head["backend"], "seconds": took, "killed_at":
+             CP_KILL_CLOCK, "raised_at_clock": pf["clock"],
+             "dead": pf["dead"], "blocked_s": pf["blocked_s"],
+             "flight_reasons": reasons}
+    print("control plane peer-failure drill (phase 27): " + json.dumps(drill),
+          flush=True)
+    k1[f"control_plane_{backends[-1]}_drill_rank0"] = head["k1"]
+    return {"rows": rows, "drill": drill, "k1": k1}
+
+
 def multi_card_main(torch, n: int) -> int:
     """``chip_smoke.py --ranks n``: phases 22-23 and the parameter server's
     phases 24-26 alone, on n cards of one machine, one rank each through
@@ -3035,14 +3449,21 @@ def main() -> int:
           "group=None, by app [group, group=None] (phase 24): " + json.dumps(
               {k: [r["samples_per_s"], r["samples_per_s_group_none"]]
                for k, r in appg["spmd"].items()}), flush=True)
+    # --------- 27. the host control plane between processes on the card
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    control = control_plane_phase(card)
+    phase_s["27"] = time.perf_counter() - t0
     print("LM decoding (phase 19): " + json.dumps(decoding), flush=True)
-    print("seconds taken by phases 17-26: " + json.dumps(phase_s),
+    print("seconds taken by phases 17-27: " + json.dumps(phase_s),
           flush=True)
 
     kernels[0]["launches_by_path"] = dict(
         lrmlp=main_launches["gather_rows"], **wd_launches, **app_launches,
         lrmlp_group_ws1=grp["pair"]["gather_launches"],
-        **{f"{k}_group_ws1": v for k, v in appg["k1"].items()})
+        **{f"{k}_group_ws1": v for k, v in appg["k1"].items()},
+        **control["k1"])
     for k in kernels[1:]:
         k["launches_by_path"] = {f"lm_{opt}": v[k["name"]]
                                  for opt, v in lm_paths.items()}

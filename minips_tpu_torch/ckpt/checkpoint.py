@@ -197,6 +197,14 @@ class Checkpointer:
                 print(f"[ckpt] WARNING: skipping torn checkpoint "
                       f"{note} — walking back to the previous step",
                       file=sys.stderr, flush=True)
+                try:
+                    from minips_tpu_torch.obs import flight as _fl
+
+                    _fl.record("ckpt_skip_torn",
+                               {"dir": self.dir, "step": int(s),
+                                "err": str(e)[:200]})
+                except Exception:  # noqa: BLE001 - obs must not block
+                    pass
                 skipped.append(note)
                 continue
             # apply pass: re-read one table at a time (old peak

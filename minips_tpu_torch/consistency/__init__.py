@@ -1,7 +1,9 @@
-"""BSP / SSP / ASP consistency controllers — a copy of
-``minips_tpu/consistency`` (host-side clock bookkeeping, no JAX). The SPMD
-gate (``consistency/gate.py``) is not carried over yet: it needs the
-``obs`` flight recorder and tracer (ROADMAP.md queue 1 item 14)."""
+"""BSP / SSP / ASP consistency — a copy of ``minips_tpu/consistency``
+(host-side clock bookkeeping, no JAX): the controllers and tracker the
+threaded Engine gates on, and the multi-process admission rule of
+``consistency/gate.py`` (``admits``, ``publish_clock``, ``StalenessGate``
+and its ``PeerFailureError`` / ``FencedOutError``), which records into
+this package's ``obs`` tracer and flight recorder."""
 
 from minips_tpu_torch.consistency.tracker import PendingBuffer, ProgressTracker  # noqa: F401
 from minips_tpu_torch.consistency.controllers import (  # noqa: F401
@@ -10,4 +12,12 @@ from minips_tpu_torch.consistency.controllers import (  # noqa: F401
     SSP,
     ConsistencyController,
     make_controller,
+)
+from minips_tpu_torch.consistency.gate import (  # noqa: F401
+    RETIRED_CLOCK,
+    FencedOutError,
+    PeerFailureError,
+    StalenessGate,
+    admits,
+    publish_clock,
 )

@@ -75,11 +75,28 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "        'minips_tpu_torch.parallel.partition',\n"
         "        'minips_tpu_torch.parallel.moe',\n"
         "        'minips_tpu_torch.models.decode',\n"
-        "        'minips_tpu_torch.apps.lm_example'}\n"
+        "        'minips_tpu_torch.apps.lm_example',\n"
+        "        'minips_tpu_torch.comm',\n"
+        "        'minips_tpu_torch.comm.framing',\n"
+        "        'minips_tpu_torch.comm.bus',\n"
+        "        'minips_tpu_torch.comm.reliable',\n"
+        "        'minips_tpu_torch.comm.chaos',\n"
+        "        'minips_tpu_torch.comm.heartbeat',\n"
+        "        'minips_tpu_torch.comm.native_bus',\n"
+        "        'minips_tpu_torch.comm.shm_bus',\n"
+        "        'minips_tpu_torch.consistency.gate',\n"
+        "        'minips_tpu_torch.obs.tracer',\n"
+        "        'minips_tpu_torch.obs.flight',\n"
+        "        'minips_tpu_torch.obs.window',\n"
+        "        'minips_tpu_torch.obs.slo',\n"
+        "        'minips_tpu_torch.obs.slowness',\n"
+        "        'minips_tpu_torch.obs.freshness',\n"
+        "        'minips_tpu_torch.obs.merge',\n"
+        "        'minips_tpu_torch.obs.report'}\n"
         "print(len(names), sorted(need - set(names)), bad)\n")
     assert r.returncode == 0, r.stderr
     count, rest = r.stdout.split(" ", 1)
-    assert int(count) >= 58 and rest.strip() == "[] []", r.stdout
+    assert int(count) >= 75 and rest.strip() == "[] []", r.stdout
 
 
 def test_importing_the_build_module_runs_nothing():
