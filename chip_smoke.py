@@ -205,8 +205,9 @@ raises on failure:
     (``MINIPS_TRACE``) estimating a clock offset from the heartbeats and
     linking the round trips' flows, ``obs/report`` charging gate-blocked
     time to the slow process; the median and p99 of 200 directed round
-    trips and of the gate's wait per clock, the pair's step time, the
-    gate's counts; then the peer-failure drill on the native bus:
+    trips (on that bus, and on a clean bus of the same backend without
+    chaos and reliable delivery) and of the gate's wait per clock, the
+    pair's step time, the gate's counts; then the peer-failure drill on the native bus:
     ``MINIPS_CHAOS_KILL`` kills process 1 at clock 30, and process 0's
     gate must raise ``PeerFailureError({1})`` within the heartbeat's
     timeout and a poll, with ``gate_peer_failure`` in its flight box.
@@ -391,7 +392,8 @@ PAIR_ONE_CARD_BATCH = B
 # delivery and seeded chaos, a heartbeat monitor (interval, timeout in s)
 # and the SSP gate at s = CP_STALENESS; process 1 spends CP_SLOW_MS more
 # host time a step, so that the gate blocks; CP_PINGS directed round trips
-# timed before the clocks; the drill kills process 1 at CP_KILL_CLOCK
+# timed before the clocks, on a clean bus of the same backend and then on
+# the chaotic, reliable one; the drill kills process 1 at CP_KILL_CLOCK
 CP_PROCS = 2
 CP_CLOCKS = 50
 CP_STALENESS = 2
@@ -2032,9 +2034,10 @@ def control_plane_rank(rank: int, cfg: dict) -> dict:
     """One process of phase 27 on ``cuda:0``: the LR + MLP pair at full
     width from seed 0, a bus of ``cfg["backend"]`` under reliable delivery
     and CP_CHAOS, a heartbeat monitor, ``ClockGossip`` and the SSP gate;
-    rank 0 times CP_PINGS directed round trips (a flow per ping in the
-    trace); then the clocks as ``SSPTrainer.step`` runs them without the
-    parameter exchange: step, publish the clock, wait at the gate. At the
+    rank 0 times CP_PINGS directed round trips on it (a flow per ping in
+    the trace), after as many on a clean bus of the same backend (no
+    chaos, no reliable delivery); then the clocks as ``SSPTrainer.step``
+    runs them without the parameter exchange: step, publish the clock, wait at the gate. At the
     end the process retires its clock and waits for its peers' and for
     every repair. When ``MINIPS_CHAOS_KILL`` kills a peer, the gate's
     ``PeerFailureError`` ends this process's run and is returned, never
@@ -2064,29 +2067,70 @@ def control_plane_rank(rank: int, cfg: dict) -> dict:
         pair.mlp_step(pair.batches[i % 2])
     torch.cuda.synchronize()
     addrs = [f"tcp://127.0.0.1:{port}" for port in cfg["ports"]]
-    bus = make_bus(addrs[rank], [a for i, a in enumerate(addrs)
-                                 if i != rank], my_id=rank,
+
+    def peers(ports):
+        return [f"tcp://127.0.0.1:{p}" for i, p in enumerate(ports)
+                if i != rank]
+
+    # the same round trips first on a clean wire of the same backend (no
+    # chaos, no reliable layer): what those two layers add to them
+    clean = make_bus(addrs[n + rank], peers(cfg["ports"][n:]), my_id=rank,
+                     backend=cfg["backend"], chaos="", reliable="")
+    bus = make_bus(addrs[rank], peers(cfg["ports"][:n]), my_id=rank,
                    backend=cfg["backend"], chaos=CP_CHAOS, reliable="1")
     out = {"rank": rank, "backend": type(bus).__name__}
-    pongs: dict = {}
-    pong_cv = threading.Condition()
-    pings_done = threading.Event()
 
-    def on_ping(sender, payload):
-        if trc is not None:
-            trc.flow("f", tracer.flow_id("ping", sender, payload["i"]),
-                     "ping")
-        bus.send(sender, "pong", {"i": payload["i"]})
+    def round_trips(bus, traced: bool):
+        """Registers the handlers on ``bus`` (before it starts) and returns
+        the run: CP_PINGS directed round trips from rank 0 to rank 1,
+        whose handler answers each, with a flow per ping in the trace
+        where ``traced``. Rank 0's run returns the times in us, rank 1's
+        None once rank 0 is done."""
+        pongs: dict = {}
+        pong_cv = threading.Condition()
+        pings_done = threading.Event()
 
-    def on_pong(sender, payload):
-        with pong_cv:
-            pongs[payload["i"]] = time.perf_counter()
-            pong_cv.notify_all()
+        def on_ping(sender, payload):
+            if traced and trc is not None:
+                trc.flow("f", tracer.flow_id("ping", sender, payload["i"]),
+                         "ping")
+            bus.send(sender, "pong", {"i": payload["i"]})
 
-    bus.on("ping", on_ping)
-    bus.on("pong", on_pong)
-    bus.on("pings_done", lambda s, p: pings_done.set())
+        def on_pong(sender, payload):
+            with pong_cv:
+                pongs[payload["i"]] = time.perf_counter()
+                pong_cv.notify_all()
+
+        bus.on("ping", on_ping)
+        bus.on("pong", on_pong)
+        bus.on("pings_done", lambda s, p: pings_done.set())
+
+        def run():
+            if rank != 0:
+                check(pings_done.wait(120.0), f"phase 27 {cfg['backend']}:"
+                      " rank 0's pings never finished")
+                return None
+            rtt = []
+            for i in range(CP_PINGS):
+                if traced and trc is not None:
+                    trc.flow("s", tracer.flow_id("ping", 0, i), "ping")
+                t0 = time.perf_counter()
+                bus.send(1, "ping", {"i": i})
+                with pong_cv:
+                    check(pong_cv.wait_for(lambda: i in pongs, 30.0),
+                          f"phase 27 {cfg['backend']}: ping {i} unanswered")
+                rtt.append((pongs[i] - t0) * 1e6)
+            bus.publish("pings_done", {})
+            return rtt
+
+        return run
+
+    clean_trips = round_trips(clean, traced=False)
+    trips = round_trips(bus, traced=True)
     try:
+        clean.start()
+        clean.handshake(n, timeout=60.0)
+        out["rtt_clean_us"] = clean_trips()
         bus.start()
         bus.handshake(n, timeout=60.0)
         gossip = ClockGossip(bus, n, workers_per_process=1)
@@ -2095,23 +2139,8 @@ def control_plane_rank(rank: int, cfg: dict) -> dict:
         gate = StalenessGate(gossip, CP_STALENESS, timeout=CP_GATE_TIMEOUT,
                              monitor=mon)
         kill = install_chaos_kill(rank, n)
-        # ---- directed round trips, rank 0 to rank 1 (1's handler replies)
-        if rank == 0:
-            rtt = []
-            for i in range(CP_PINGS):
-                if trc is not None:
-                    trc.flow("s", tracer.flow_id("ping", 0, i), "ping")
-                t0 = time.perf_counter()
-                bus.send(1, "ping", {"i": i})
-                with pong_cv:
-                    check(pong_cv.wait_for(lambda: i in pongs, 30.0),
-                          f"phase 27 {cfg['backend']}: ping {i} unanswered")
-                rtt.append((pongs[i] - t0) * 1e6)
-            out["rtt_us"] = rtt
-            bus.publish("pings_done", {})
-        else:
-            check(pings_done.wait(120.0), f"phase 27 {cfg['backend']}: "
-                  "rank 0's pings never finished")
+        # ---- directed round trips under chaos and reliable delivery
+        out["rtt_us"] = trips()
         # ---- the clocks
         torch.cuda.synchronize()
         gather_rows.launches = 0
@@ -2160,6 +2189,7 @@ def control_plane_rank(rank: int, cfg: dict) -> dict:
                    chaos=bus.chaos.snapshot(), bytes_sent=bus.bytes_sent)
     finally:
         bus.close()
+        clean.close()
         tracer.dump_now()
         flight.dump_now()
     return out
@@ -2182,7 +2212,7 @@ def spawn_control_plane(backend: str, kill: bool) -> list:
     shutil.rmtree(root, ignore_errors=True)
     run_id = f"chipsmoke{os.getpid()}{tag}"
     cfg = {"procs": CP_PROCS, "batch": B, "backend": backend,
-           "ports": free_ports(CP_PROCS),
+           "ports": free_ports(2 * CP_PROCS),
            "env": {"MINIPS_TRACE": os.path.join(root, "trace"),
                    "MINIPS_FLIGHT": os.path.join(root, "flight"),
                    "MINIPS_RUN_ID": run_id, "MINIPS_HEARTBEAT": "",
@@ -2305,12 +2335,14 @@ def control_plane_phase(card: str) -> dict:
                         if k.startswith("gate ")} for rk, a in attr.items()}
         check(gate_us.get(0, {}).get("gate 1", 0) > 0, f"{tag}: report "
               f"charged no gate-blocked time of rank 0 to rank 1: {attr}")
-        rtt = res[0]["rtt_us"]
+        rtt, clean = res[0]["rtt_us"], res[0]["rtt_clean_us"]
         waits = [x for r in res for x in r["gate_wait_ms"]]
         steps = [x for r in res for x in r["step_ms"]]
         rows[backend] = {
             "bus": res[0]["backend"], "seconds": took,
             "rtt_us_p50": statistics.median(rtt), "rtt_us_p99": p99(rtt),
+            "rtt_clean_us_p50": statistics.median(clean),
+            "rtt_clean_us_p99": p99(clean),
             "gate_wait_ms_p50": statistics.median(waits),
             "gate_wait_ms_p99": p99(waits),
             "gate_wait_ms_p50_by_rank": [

@@ -24,7 +24,8 @@ from minips_tpu.comm import reliable as rrel
 from minips_tpu_torch.comm import bus as pbus
 from minips_tpu_torch.comm import chaos as pchaos
 from minips_tpu_torch.comm import reliable as prel
-from tests.torch_comm_util import close_all, mixed_buses, shm_in, wait_for
+from tests.torch_comm_util import (close_all, flush_link, mixed_buses, shm_in,
+                                   wait_for)
 
 SPECS = [
     "123:drop=0.01,dup=0.005,delay=0.1,delay_ms=7,reorder=0.02,"
@@ -319,7 +320,7 @@ def test_port_buses_chaos_without_reliable_loses_loudly(monkeypatch):
     try:
         got = []
         buses[1].on("d", lambda s, p: got.append(p["i"]))
-        time.sleep(0.3)  # the handshake's last frames land first
+        flush_link(buses[0], buses[1])  # the handshake's frames land first
         before = buses[1].chaos.snapshot()
         for i in range(300):
             buses[0].send(1, "d", {"i": i})

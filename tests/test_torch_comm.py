@@ -257,7 +257,7 @@ def test_blob_exchange_early_arrival_and_four_round_retention():
 
         th = threading.Thread(target=side1)
         th.start()
-        time.sleep(0.3)
+        assert wait_for(lambda: 0 in ex[1]._sent.get("emb", {}), timeout=15.0)
         for rnd in range(6):
             got = ex[0].allgather(rnd, "emb", arrays[(0, rnd)], timeout=30)
             for r in (0, 1):
@@ -312,9 +312,14 @@ def test_heartbeat_live_peers_not_flagged_across_packages():
         mons = [(HeartbeatMonitor if pkg == "port" else RMonitor)(
             b, peer_ids=[0, 1, 2], interval=0.05, timeout=2.0)
             for pkg, b in zip(("port", "ref", "port"), buses)]
+        t0 = time.monotonic()
         for m in mons:
             m.start()
-        time.sleep(0.5)
+        # several intervals: every monitor has heard every peer beat at
+        # least five intervals after the start
+        assert wait_for(lambda: all(seen >= t0 + 0.25 for m in mons
+                                    for seen in m._last_seen.values()),
+                        timeout=15.0)
         dead = [m.dead for m in mons]
         for m in mons:
             m.stop()
@@ -544,7 +549,9 @@ def test_port_layers_record_into_port_singletons(monkeypatch, tmp_path):
             for i in range(60):
                 buses[0].send(1, "x", {"i": i})
             assert wait_for(lambda: got == list(range(60)), timeout=20.0)
-            time.sleep(0.2)
+            assert wait_for(lambda: recs["port"][0]._hb and any(
+                e[4] == "hb" for e in recs["port"][1].events_snapshot()),
+                timeout=15.0)
             for m in mons:
                 m.stop()
         finally:

@@ -109,6 +109,24 @@ def wait_for(pred, timeout: float = 15.0, step: float = 0.01) -> bool:
     return pred()
 
 
+def flush_link(src, dst, timeout: float = 15.0) -> None:
+    """Return once every frame ``src`` put on the wire to ``dst`` before
+    the call has passed ``dst``'s receive chain, its chaos injector
+    included: an unstamped marker frame sent after them keeps their
+    order on the link, and one that gets through shows they have passed.
+    A marker the chaos drops is followed by another."""
+    got: set = set()
+    dst.on("__flush", lambda sender, payload: got.add(payload["i"]))
+    deadline = time.monotonic() + timeout
+    i = 0
+    while True:
+        src.send(dst.my_id, "__flush", {"i": i})
+        if wait_for(lambda: i in got, timeout=0.2):
+            return
+        assert time.monotonic() < deadline, "no marker crossed the link"
+        i += 1
+
+
 def arm_obs(monkeypatch, tmp_path, rank: int = 0, *, trace: bool = False):
     """Arm each package's flight recorder (and with ``trace`` its tracer)
     explicitly, into a directory of its own under ``tmp_path``: both
