@@ -211,13 +211,39 @@ raises on failure:
     ``MINIPS_CHAOS_KILL`` kills process 1 at clock 30, and process 0's
     gate must raise ``PeerFailureError({1})`` within the heartbeat's
     timeout and a poll, with ``gate_peer_failure`` in its flight box.
+28. the multi-process parameter server (``train/sharded_ps.py``): jobs
+    of 2 processes launched by ``launch.run_local_job``, sharing the
+    card, each rank printing its done line. 28a: ``wide_deep_example
+    --exec multiproc`` at its defaults (BSP), then SSP s = 4 with rank 1
+    25 ms slower a step: no frame dropped, falling loss, AUC above 0.65,
+    skew at most 1 (BSP) and 5 (SSP, with gate waits on rank 0),
+    fingerprints within 1e-4, each rank holding half the tables' bytes;
+    samples/s per process and in all, the pull leg's p50 and p99, bytes
+    pushed a step. 28b: 3 steps of the BSP job on the card and on CPU
+    ranks (``MINIPS_FORCE_CPU``), the two jobs side by side, both with a
+    200 ms tax on every frame between the ranks so that no push beats a
+    first pull: each rank's first loss within 1e-4. 28c: ``mf_example`` (ASP) on phase 13's
+    ``ratings.csv`` and ``word2vec_example`` under SSP s = 2 at B 128,
+    with the same contracts and MF's RMSE. 28d: ``sharded_ps_example``'s
+    sparse LR under SSP: rank 1 killed at step 10, rank 0 exits 42 with
+    the ``peer_failure`` event, and a relaunch resumes from the newest
+    step both saved; 3 processes train and checkpoint, and pure restores
+    on 3 and on 2 (resharded by ``ckpt/elastic.py``) give the same
+    parameter sum; the two drills side by side. No kernel of K1-K4 lies
+    on this path.
+
+Before it prints its result, and on every way out, the script stops and
+reaps every process it started that still runs: the launcher's fork
+server, multiprocessing's resource tracker, and any other child (it makes
+itself their subreaper, so a child's orphans count as its own).
 
 ``python3 chip_smoke.py --ranks N`` runs phases 22-23 and then 24-26 on
 N cards of one machine, one NCCL rank each: the LR + MLP pair at 65,536
 rows per card and at 65,536 in all, Wide&Deep spmd and threaded (rank 0
 driving N workers) and the ``lr_example`` resume, with samples/s in all
 and per card beside one card's in the same call, and K1's launches on
-every rank.
+every rank; then phase 28a's BSP job as N launched processes, one card
+each, beside 2 processes sharing card 0, samples/s in all.
 
 The last two lines are a JSON object with every kernel's numbers (its
 launches on each path beside them) and then ``{"ok": true, "device":
@@ -410,6 +436,38 @@ CP_WARM_STEPS = 2
 # process's last step and the scheduling of two threads
 CP_DETECT_S = CP_HB_TIMEOUT + 1.0 + 0.5
 CP_SPAWN_TIMEOUT = 300.0
+# phase 28: the multi-process parameter server (train/sharded_ps.py) under
+# the port's launcher, MP_PROCS processes sharing the one card; each job
+# at its app's defaults unless a flag below says otherwise. 28a's SSP run:
+# staleness, the slow rank and its extra host time a step
+MP_PROCS = 2
+MP_SSP, MP_SLOW_RANK, MP_SLOW_MS = 4, 1, 25.0
+MP_JOB_TIMEOUT_S = 300.0
+# 28b: |loss_first(card) - loss_first(CPU)| per rank. The first step's
+# rows are the seeded initial tables in both runs; the deep tower's bf16
+# GEMMs sum in other orders on the card and the CPU, which moves a mean
+# loss over 1024 samples by far less than this. A rank's first pull races
+# its peer's first push (a push to the pusher's own shard lands at once),
+# so both runs put a fixed MP_TAX_MS on every frame between the ranks: a
+# push then lands two taxed hops after the pulls of step 0
+MP_FIRST_LOSS_TOL = 1e-4
+MP_TAX_MS = 200
+MP_TAX_ITERS = 3
+# 28c: word2vec's SSP staleness (its default is 0, BSP's bound) and
+# batch: at its default B 1024 each of the 2 processes pushes B x its mean
+# gradient at lr 0.05, and the JAX package's job diverges there too (loss
+# 4.159 -> 10.1 and 12.1 in a CPU run), so 28c takes the JAX package's
+# multiproc smoke batch (tests/test_distributed_smoke.py)
+MP_W2V_SSP, MP_W2V_BATCH = 2, 128
+# 28d: sharded_ps_example's sparse LR under SSP; the kill drill (rank 1
+# dies at step MP_KILL_AT, a checkpoint every MP_CKPT_EVERY) and the
+# elastic drill (MP_ELASTIC_ITERS steps on 3 processes, restored on 3 and
+# on 2); the pure restores' parameter sums agree within MP_ELASTIC_TOL
+MP_KILL_AT, MP_CKPT_EVERY, MP_KILL_ITERS = 10, 4, 40
+MP_RESUME_ITERS = 16
+MP_ELASTIC_ITERS, MP_ELASTIC_EVERY = 20, 5
+MP_ELASTIC_TOL = 1e-5
+MP_FP_TOL = 1e-4  # replica agreement: fingerprints after finalize
 
 
 def check(cond: bool, msg: str) -> None:
@@ -1994,6 +2052,64 @@ def app_group_phases(group, dev, cfg) -> dict:
     return out
 
 
+def adopt_orphans() -> None:
+    """Make this process the subreaper of its descendants (Linux's
+    ``PR_SET_CHILD_SUBREAPER``): a process whose parent dies is re-parented
+    here, not to init, so that ``stop_children`` finds it."""
+    import ctypes
+
+    libc = ctypes.CDLL(None, use_errno=True)
+    check(libc.prctl(36, 1, 0, 0, 0) == 0,  # PR_SET_CHILD_SUBREAPER
+          f"prctl(PR_SET_CHILD_SUBREAPER): errno {ctypes.get_errno()}")
+
+
+def child_pids() -> list:
+    """The pids whose parent is this process, zombies included."""
+    me, out = os.getpid(), []
+    for name in os.listdir("/proc"):
+        if not name.isdigit():
+            continue
+        try:
+            with open(f"/proc/{name}/stat") as f:
+                stat = f.read()
+        except OSError:  # exited while listed
+            continue
+        # "pid (comm) state ppid ...": comm may hold spaces and parentheses
+        if int(stat[stat.rindex(")") + 2:].split()[1]) == me:
+            out.append(int(name))
+    return out
+
+
+def stop_children() -> list:
+    """Stop and reap every process this script started that still runs:
+    the launcher's fork server and multiprocessing's resource tracker,
+    each waited for (on its own each would outlive the script by its
+    teardown), then any other child, and any orphan re-parented here,
+    killed. Returns the pids it had to kill."""
+    import signal
+
+    launch = sys.modules.get("minips_tpu_torch.launch")
+    if launch is not None:
+        launch.stop_fork_server()
+    from multiprocessing import resource_tracker
+
+    resource_tracker._resource_tracker._stop()
+    killed = []
+    for _ in range(100):  # a killed child's own children come here next
+        pids = child_pids()
+        if not pids:
+            break
+        for pid in pids:
+            try:
+                os.kill(pid, signal.SIGKILL)  # a zombie is only reaped
+                _, status = os.waitpid(pid, 0)
+            except (ProcessLookupError, ChildProcessError):
+                continue
+            if os.waitstatus_to_exitcode(status) == -signal.SIGKILL:
+                killed.append(pid)
+    return killed
+
+
 def free_ports(n: int) -> list:
     """``n`` loopback TCP ports the OS reports free, held open together
     while chosen so that they differ."""
@@ -2395,6 +2511,251 @@ def control_plane_phase(card: str) -> dict:
     return {"rows": rows, "drill": drill, "k1": k1}
 
 
+def mp_job(n: int, module: str, flags: list, *, env: dict = None) -> list:
+    """``n`` launched ranks of ``python -m minips_tpu_torch.apps.<module>``
+    through the port's launcher (``launch.run_local_job``), each rank's
+    done line harvested."""
+    from minips_tpu_torch import launch
+
+    argv = [sys.executable, "-m", f"minips_tpu_torch.apps.{module}"] + flags
+    return launch.run_local_job(n, argv,
+                                env_extra=dict(env or {}, PYTHONPATH=REPO),
+                                timeout=MP_JOB_TIMEOUT_S)
+
+
+def side_by_side(*jobs) -> list:
+    """Each of ``jobs`` (no-argument callables) on a thread of its own, at
+    once; their results in order. Only for jobs whose numbers are not
+    rates: jobs that run together share the host's cores. A job's
+    exception is raised here."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(len(jobs)) as pool:
+        futures = [pool.submit(job) for job in jobs]
+        return [f.result() for f in futures]
+
+
+def mp_rates(res: list, batch: int) -> dict:
+    """A multiproc job's numbers from its done lines: samples/s per process
+    and in all (``batch`` x clock / wall_s), the pull and push legs' p50
+    and p99 from ``wire_record``'s histograms, bytes pushed a step."""
+    out = {"samples_per_s": [round(batch * r["clock"] / r["wall_s"], 1)
+                             for r in res]}
+    out["samples_per_s_all"] = round(sum(out["samples_per_s"]), 1)
+    for leg, key in (("pull", "pull_latency_ms"), ("push_ack", "push_ack_ms")):
+        h = [r["hist"][key] for r in res]
+        out[f"{leg}_ms_p50_p99"] = [[x.get("p50_ms"), x.get("p99_ms")]
+                                    for x in h]
+    out["bytes_pushed_per_step"] = [round(r["bytes_pushed"] / r["clock"])
+                                    for r in res]
+    return out
+
+
+def mp_contracts(tag: str, res: list, *, skew=None, auc: bool = True,
+                 gate_rank=None) -> None:
+    """The JAX package's multiproc contracts on every rank's done line
+    (``tests/test_distributed_smoke.py``): no frame dropped, falling loss,
+    AUC above 0.65, the skew bound (none under ASP), 1/N memory, replica
+    agreement."""
+    n = len(res)
+    for r in res:
+        rk = r["rank"]
+        check(r["event"] == "done", f"{tag}: rank {rk}: {r}")
+        check(r["frames_dropped"] == 0 and r["wire_frames_malformed"] == 0,
+              f"{tag}: rank {rk} dropped frames: {r['frames_dropped']}, "
+              f"malformed {r['wire_frames_malformed']}")
+        check(math.isfinite(r["loss_last"])
+              and r["loss_last"] < r["loss_first"], f"{tag}: rank {rk} "
+              f"loss {r['loss_first']} -> {r['loss_last']}")
+        if auc:
+            check(r["auc"] > 0.65, f"{tag}: rank {rk} AUC {r['auc']}")
+        check(skew is None or r["max_skew_seen"] <= skew, f"{tag}: rank "
+              f"{rk} skew {r['max_skew_seen']} > {skew}")
+        check(r["local_bytes"] * n <= r["table_bytes"] * 1.01 + 64 * n,
+              f"{tag}: rank {rk} holds {r['local_bytes']} of "
+              f"{r['table_bytes']} bytes")
+    if gate_rank is not None:
+        r = next(r for r in res if r["rank"] == gate_rank)
+        check(r["gate_waits"] > 0, f"{tag}: the fast rank {gate_rank} "
+              "never waited at the gate")
+    fps = [r["param_fingerprint"] for r in res]
+    check(max(fps) - min(fps) < MP_FP_TOL, f"{tag}: fingerprints {fps}")
+
+
+def mp_kill_drill(ck: str) -> dict:
+    """28d's kill drill: MP_PROCS ranks of sharded_ps_example, rank 1
+    killed at step MP_KILL_AT, through the launcher's fault-drill path,
+    which reports each rank's exit code (rank 0's: 42, with the
+    peer_failure event)."""
+    from minips_tpu_torch import launch
+
+    base = ["--model", "sparse", "--mode", "ssp", "--checkpoint-dir", ck,
+            "--checkpoint-every", str(MP_CKPT_EVERY)]
+    t0 = time.perf_counter()
+    rcs, events = launch.run_local_job_raw(
+        MP_PROCS, [sys.executable, "-m",
+                   "minips_tpu_torch.apps.sharded_ps_example", "--iters",
+                   str(MP_KILL_ITERS), "--kill-at", str(MP_KILL_AT),
+                   "--kill-rank", "1"] + base,
+        env_extra={"PYTHONPATH": REPO}, timeout=MP_JOB_TIMEOUT_S,
+        per_rank=True)
+    last = events[0][-1] if events[0] else {}
+    check(rcs[1] == 137 and rcs[0] == 42 and last.get("event")
+          == "peer_failure" and last.get("dead") == [1],
+          f"phase 28d kill: exit codes {rcs}, rank 0's last event {last}")
+    kill_s = time.perf_counter() - t0
+    res = mp_job(MP_PROCS, "sharded_ps_example",
+                 ["--iters", str(MP_RESUME_ITERS)] + base)
+    # rank 1 saved every MP_CKPT_EVERY steps up to its death
+    want = (MP_KILL_AT // MP_CKPT_EVERY) * MP_CKPT_EVERY
+    for r in res:
+        check(r["event"] == "done" and r["resumed_from"] == want
+              and r["clock"] == MP_RESUME_ITERS, f"phase 28d resume: {r}")
+    sums = [r["param_sum"] for r in res]
+    check(max(sums) - min(sums) < MP_FP_TOL, f"phase 28d resume: {sums}")
+    return {"exit_codes": rcs, "peer_failure_at_clock": last["at_clock"],
+            "resumed_from": want, "kill_job_s": round(kill_s, 1)}
+
+
+def mp_elastic_drill(ck: str) -> dict:
+    """28d's elastic drill (``tests/test_elastic.py``'s): 3 processes
+    train MP_ELASTIC_ITERS steps with shard checkpoints; a pure restore
+    on 3 and one on 2 (which reshards through ``ckpt/elastic.py``) report
+    the same parameter sum."""
+    base = ["--model", "sparse", "--mode", "ssp", "--batch", "128",
+            "--iters", str(MP_ELASTIC_ITERS), "--checkpoint-dir", ck,
+            "--checkpoint-every", str(MP_ELASTIC_EVERY)]
+    res3 = mp_job(3, "sharded_ps_example", base)
+    check(all(r["clock"] == MP_ELASTIC_ITERS for r in res3),
+          f"phase 28d elastic: {res3}")
+    same = mp_job(3, "sharded_ps_example", base)
+    shrunk = mp_job(2, "sharded_ps_example", base)
+    for r in same + shrunk:
+        check(r["event"] == "done" and r["resumed_from"] == MP_ELASTIC_ITERS,
+              f"phase 28d elastic restore: {r}")
+    diff = abs(shrunk[0]["param_sum"] - same[0]["param_sum"])
+    check(diff <= MP_ELASTIC_TOL, f"phase 28d elastic: the 2-process "
+          f"restore's sum {shrunk[0]['param_sum']} against the 3-process "
+          f"restore's {same[0]['param_sum']}")
+    return {"trained_sum": res3[0]["param_sum"],
+            "restored_3_sum": same[0]["param_sum"],
+            "resharded_2_sum": shrunk[0]["param_sum"], "diff": diff}
+
+
+def multiproc_phase(card: str, ratings: str) -> dict:
+    """Phase 28: the multi-process parameter server between MP_PROCS
+    launched processes that share the card (28a-28c) and its fault and
+    checkpoint drills (28d). No kernel of K1-K4 lies on this path: the
+    servers are numpy on the host and each rank's step is autograd on
+    ``cuda:0``. Returns the numbers printed."""
+    out = {}
+    wd = ["--exec", "multiproc"]
+    b = 1024  # the apps' default batch
+    # ---- 28a: Wide&Deep at BSP, then SSP with a straggler
+    t0 = time.perf_counter()
+    bsp = mp_job(MP_PROCS, "wide_deep_example", wd)
+    for r in bsp:
+        check(r["device"] == "cuda:0", f"phase 28a: rank {r['rank']} ran "
+              f"on {r['device']}")
+    mp_contracts("phase 28a BSP", bsp, skew=1)
+    ssp = mp_job(MP_PROCS, "wide_deep_example", wd + [
+        "--consistency", "ssp", "--staleness", str(MP_SSP), "--slow-rank",
+        str(MP_SLOW_RANK), "--slow-ms", str(MP_SLOW_MS)])
+    mp_contracts("phase 28a SSP", ssp, skew=MP_SSP + 1, gate_rank=0)
+    out["28a"] = {"bsp": mp_rates(bsp, b), "ssp": mp_rates(ssp, b),
+                  "ssp_gate_waits": [r["gate_waits"] for r in ssp],
+                  "ssp_max_skew": [r["max_skew_seen"] for r in ssp],
+                  "auc": [r["auc"] for r in bsp + ssp],
+                  "s": round(time.perf_counter() - t0, 1)}
+    print(f"multiproc Wide&Deep on {MP_PROCS} processes sharing {card} "
+          "(phase 28a; samples/s = B x clock / wall_s; push_ack is empty: "
+          "the app pushes synchronously): " + json.dumps(out["28a"]),
+          flush=True)
+    # ---- 28b: the card against the CPU, taxed links
+    t0 = time.perf_counter()
+    tax = {"MINIPS_CHAOS": f"1:slow#0-1={MP_TAX_MS}"}
+    short = wd + ["--num_iters", str(MP_TAX_ITERS)]
+    on_card, on_cpu = side_by_side(
+        lambda: mp_job(MP_PROCS, "wide_deep_example", short, env=tax),
+        lambda: mp_job(MP_PROCS, "wide_deep_example", short,
+                       env=dict(tax, MINIPS_FORCE_CPU="1")))
+    cpu_first = {r["rank"]: r["loss_first"] for r in on_cpu}
+    diffs = {r["rank"]: abs(r["loss_first"] - cpu_first[r["rank"]])
+             for r in on_card}
+    check(all(r["device"] == "cpu" for r in on_cpu), "phase 28b: a CPU "
+          f"rank ran on {[r['device'] for r in on_cpu]}")
+    check(max(diffs.values()) <= MP_FIRST_LOSS_TOL, "phase 28b: first "
+          f"losses card {[r['loss_first'] for r in on_card]} CPU "
+          f"{cpu_first} differ by {diffs}")
+    out["28b"] = {"first_loss_diff": diffs,
+                  "s": round(time.perf_counter() - t0, 1)}
+    print("multiproc Wide&Deep first losses, card against CPU ranks "
+          f"(phase 28b, tolerance {MP_FIRST_LOSS_TOL}): "
+          + json.dumps(out["28b"]), flush=True)
+    # ---- 28c: MF (ASP) on phase 13's ratings.csv, word2vec under SSP
+    t0 = time.perf_counter()
+    mf = mp_job(MP_PROCS, "mf_example", ["--exec", "multiproc",
+                                         "--data_file", ratings])
+    mp_contracts("phase 28c MF", mf, auc=False)
+    check(all(r["rmse"] is not None and math.isfinite(r["rmse"])
+              for r in mf), f"phase 28c MF: RMSE {[r['rmse'] for r in mf]}")
+    w2v = mp_job(MP_PROCS, "word2vec_example", [
+        "--exec", "multiproc", "--consistency", "ssp", "--staleness",
+        str(MP_W2V_SSP), "--batch_size", str(MP_W2V_BATCH)])
+    mp_contracts("phase 28c word2vec", w2v, skew=MP_W2V_SSP + 1, auc=False)
+    out["28c"] = {"mf": dict(mp_rates(mf, b), rmse=[r["rmse"] for r in mf],
+                             loss=[[r["loss_first"], r["loss_last"]]
+                                   for r in mf]),
+                  "word2vec": dict(mp_rates(w2v, MP_W2V_BATCH), loss=[
+                      [r["loss_first"], r["loss_last"]] for r in w2v]),
+                  "s": round(time.perf_counter() - t0, 1)}
+    print(f"multiproc MF (ASP, {MF_RATINGS} ratings) and word2vec (SSP s = "
+          f"{MP_W2V_SSP}, B {MP_W2V_BATCH}) on {MP_PROCS} processes (phase "
+          "28c): "
+          + json.dumps(out["28c"]), flush=True)
+    # ---- 28d: the kill drill and the elastic drill
+    t0 = time.perf_counter()
+    root = os.path.join(REPO, "build", "chip_smoke_mp")
+    shutil.rmtree(root, ignore_errors=True)
+    kill, elastic = side_by_side(
+        lambda: mp_kill_drill(os.path.join(root, "kill")),
+        lambda: mp_elastic_drill(os.path.join(root, "elastic")))
+    out["28d"] = {"kill": kill, "elastic": elastic,
+                  "s": round(time.perf_counter() - t0, 1)}
+    shutil.rmtree(root, ignore_errors=True)
+    print("multiproc fault and checkpoint drills (phase 28d): "
+          + json.dumps(out["28d"]), flush=True)
+    print("K1-K4 on phase 28's path: none launched (the servers apply "
+          "updates in numpy on the host; each rank's step is autograd "
+          "through cuBLAS and PyTorch's own kernels)", flush=True)
+    return out
+
+
+def multiproc_cards(n: int) -> dict:
+    """``--ranks n``'s phase 28a: Wide&Deep's BSP job as n launched
+    processes, one card each, beside MP_PROCS processes that share card 0,
+    in the same call; the contracts on both, samples/s in all."""
+    t0 = time.perf_counter()
+    wd = ["--exec", "multiproc"]
+    shared = mp_job(MP_PROCS, "wide_deep_example", wd,
+                    env={"CUDA_VISIBLE_DEVICES": "0"})
+    spread = mp_job(n, "wide_deep_example", wd)
+    check(sorted(r["device"] for r in spread)
+          == [f"cuda:{i}" for i in range(n)], "phase 28a on "
+          f"{n} cards: devices {[r['device'] for r in spread]}")
+    check(all(r["device"] == "cuda:0" for r in shared), "phase 28a on one "
+          f"card: devices {[r['device'] for r in shared]}")
+    mp_contracts(f"phase 28a BSP on {n} cards", spread, skew=1)
+    mp_contracts("phase 28a BSP on one card", shared, skew=1)
+    rates = {f"{n}_processes_{n}_cards": mp_rates(spread, 1024),
+             f"{MP_PROCS}_processes_1_card": mp_rates(shared, 1024)}
+    print(f"multiproc Wide&Deep BSP, samples/s in all (phase 28a, "
+          f"{time.perf_counter() - t0:.1f} s): " + json.dumps(
+              {k: v["samples_per_s_all"] for k, v in rates.items()})
+          + "; in full: " + json.dumps(rates), flush=True)
+    return rates
+
+
 def multi_card_main(torch, n: int) -> int:
     """``chip_smoke.py --ranks n``: phases 22-23 and the parameter server's
     phases 24-26 alone, on n cards of one machine, one rank each through
@@ -2460,6 +2821,9 @@ def multi_card_main(torch, n: int) -> int:
           flush=True)
     print(f"K1 launches on each of the {n} ranks, by path: " + json.dumps(
         {k: [r["k1"][k] for r in appg] for k in head["k1"]}), flush=True)
+    multiproc_cards(n)
+    print("processes still running at the end, killed: "
+          + json.dumps(stop_children()), flush=True)
     print(cards[0])
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -2475,6 +2839,7 @@ def main() -> int:
         print("chip_smoke: CUDA is not available; this script runs only on "
               "an NVIDIA card", file=sys.stderr)
         return 2
+    adopt_orphans()
     sys.path.insert(0, REPO)
     if "--ranks" in sys.argv:
         return multi_card_main(
@@ -3476,7 +3841,6 @@ def main() -> int:
         timeout=GROUP_TIMEOUT_S,
         store_dir=os.path.join(REPO, "build", "chip_smoke_store"))[0]
     phase_s["24-26"] = time.perf_counter() - t0
-    os.remove(ratings)
     print("apps' spmd samples/s through an NCCL group of one beside "
           "group=None, by app [group, group=None] (phase 24): " + json.dumps(
               {k: [r["samples_per_s"], r["samples_per_s_group_none"]]
@@ -3487,8 +3851,15 @@ def main() -> int:
     torch.cuda.empty_cache()
     control = control_plane_phase(card)
     phase_s["27"] = time.perf_counter() - t0
+    # --------- 28. the multi-process parameter server under the launcher
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    multiproc_phase(card, ratings)
+    os.remove(ratings)
+    phase_s["28"] = time.perf_counter() - t0
     print("LM decoding (phase 19): " + json.dumps(decoding), flush=True)
-    print("seconds taken by phases 17-27: " + json.dumps(phase_s),
+    print("seconds taken by phases 17-28: " + json.dumps(phase_s),
           flush=True)
 
     kernels[0]["launches_by_path"] = dict(
@@ -3516,6 +3887,8 @@ def main() -> int:
         k["launches_by_path"]["lm_example_dp_flash_resumed_group_ws1"] = \
             appg["flash_resumed"][k["name"]]
 
+    print("processes still running at the end, killed: "
+          + json.dumps(stop_children()), flush=True)
     print(f"card: {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
@@ -3525,4 +3898,11 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        rc = main()
+    finally:
+        left = stop_children()
+        if left:
+            print(f"chip_smoke: killed processes left running: {left}",
+                  file=sys.stderr)
+    sys.exit(rc)

@@ -14,7 +14,12 @@ kernels of ``ops/flash_attention.py``, with its optimizer state in float32,
 bfloat16 or blockwise int8; and the threaded ``Engine`` path
 (``core/engine.py``: worker threads pulling and pushing through the
 BSP/SSP/ASP controllers of ``consistency/``), which drives the
-Wide&Deep/DeepFM app (``apps/wide_deep_example.py``) beside its fused mode.
+Wide&Deep/DeepFM app (``apps/wide_deep_example.py``) beside its fused mode;
+and the multi-process parameter server (``train/sharded_ps.py`` under
+``launch.py``: ``--exec multiproc``), whose numpy servers are the JAX
+package's and whose ranks step on their own devices. Importing the package
+touches no device: a launcher forks CPU ranks from a server that imported
+it.
 """
 
 import torch

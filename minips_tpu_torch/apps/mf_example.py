@@ -19,15 +19,20 @@ or ``u.data``); ``--eval_frac`` holds ratings out and scores them by RMSE.
 CLI's ``--ranks N``), both tables range-sharded over the ranks, each rank
 stepping on its rows of every batch (spmd) or serving rank 0's workers
 (threaded); every rank scores the holdout (its pulls are collectives).
-``--exec multiproc`` (ROADMAP.md queue 1 items 14-15) is not ported yet
-and raises.
+``--exec multiproc`` runs one launcher rank (``launch.py``) of the
+key-range-sharded PS (``train/sharded_ps.py``): exact per-id user and
+item rows partitioned over the processes, the servers numpy on the host,
+this rank's step by autograd on its device (``multiproc_device``).
 
 Usage: python -m minips_tpu_torch.apps.mf_example --num_iters 300
+       MINIPS_FORCE_CPU=1 python -m minips_tpu_torch.launch --n 2 -- \\
+    python -m minips_tpu_torch.apps.mf_example --exec multiproc
 """
 
 from __future__ import annotations
 
 import functools
+import time
 
 import numpy as np
 import torch
@@ -82,8 +87,7 @@ def run(cfg: Config, args, metrics, group: Group = None) -> dict:
     and ``args``."""
     mode = getattr(args, "exec_mode", "spmd")
     if mode == "multiproc":
-        raise SystemExit("--exec multiproc is not ported yet (ROADMAP.md "
-                         "queue 1 items 14-15: the sharded PS)")
+        return _run_multiproc(cfg, args, metrics)
     device = resolve_device(getattr(args, "device", None))
     data = _load_ratings(cfg, args)
     user_t, item_t = make_tables(cfg, int(data["user"].max()) + 1,
@@ -133,9 +137,10 @@ def _score_holdout_rmse(out, holdout, user_t, item_t, metrics,
     sq_err = 0.0
     with torch.no_grad():
         for batch, n_valid in padded_chunks(holdout, chunk):
-            pred = mf_model.predict(user_t.pull(batch["user"]),
-                                    item_t.pull(batch["item"]),
-                                    mu=MU).cpu().numpy()
+            # a SparseTable pulls tensors, a ShardedTable numpy rows
+            u, i = (torch.as_tensor(t.pull(batch[k])) for t, k in
+                    ((user_t, "user"), (item_t, "item")))
+            pred = mf_model.predict(u, i, mu=MU).cpu().numpy()
             err = pred[:n_valid] - batch["rating"][:n_valid]
             sq_err += float(np.sum(err * err))
     out["rmse"] = float(np.sqrt(sq_err / n))
@@ -182,14 +187,131 @@ def _run_threaded(cfg, metrics, data, user_t, item_t, holdout,
          "tables": (user_t, item_t)}, holdout, user_t, item_t, metrics)
 
 
+def _run_multiproc(cfg: Config, args, metrics) -> dict:
+    """MF on the key-range-sharded PS: user/item factor tables PARTITIONED
+    across launcher processes with EXACT per-key rows — MovieLens ids are
+    dense and 0-based, so the range partitioner owns them directly, no
+    hashing. The default is ASP (BASELINE.json:9 "async ASP"): pulls are
+    never parked, pushes land whenever they arrive — the gate only
+    engages under --consistency bsp/ssp."""
+    import os
+    import sys
+
+    from minips_tpu_torch.apps.common import (emit_multiproc_done,
+                                              init_multiproc,
+                                              multiproc_device,
+                                              run_multiproc_body,
+                                              shard_checkpointing)
+    from minips_tpu_torch.train.sharded_ps import (ShardedPSTrainer,
+                                                   ShardedTable,
+                                                   table_state_bytes)
+
+    dev = multiproc_device(getattr(args, "device", None))
+    rank, nprocs, bus, monitor, staleness = init_multiproc(
+        cfg.table.consistency, cfg.table.staleness)
+
+    full = _load_ratings(cfg, args)
+    # user/item universes are GLOBAL (every rank must agree on table
+    # sizes); the rating rows are what shards round-robin
+    num_users = int(full["user"].max()) + 1
+    num_items = int(full["item"].max()) + 1
+    data = {k: v[rank::nprocs] for k, v in full.items()}
+    frac = getattr(args, "eval_frac", None)
+    frac = 0.1 if frac is None else frac
+    data, holdout = holdout_split(data, frac, seed=cfg.train.seed)
+
+    updater = cfg.table.updater  # sgd/adagrad/adam all server-side
+    dim = cfg.table.dim
+    push_comm = getattr(args, "push_comm", "float32")
+    mk = lambda name, rows, seed: ShardedTable(  # noqa: E731
+        name, rows, dim, bus, rank, nprocs, updater=updater,
+        lr=cfg.table.lr, init_scale=0.1, seed=seed, monitor=monitor,
+        pull_timeout=30.0, push_comm=push_comm)
+    user_t = mk("user", num_users, 1)
+    item_t = mk("item", num_items, 2)
+    trainer = ShardedPSTrainer({"user": user_t, "item": item_t}, bus,
+                               nprocs, staleness=staleness,
+                               gate_timeout=30.0, monitor=monitor)
+    resume = shard_checkpointing(bus, nprocs, cfg.train.checkpoint_dir,
+                                 rank)
+    bus.handshake(nprocs)
+    start_iter, save_hook = resume(
+        {"user": user_t, "item": item_t, "trainer": trainer},
+        cfg.train.checkpoint_every)
+
+    B = cfg.train.batch_size
+    rng = np.random.default_rng((rank, start_iter))
+    losses = []
+    rmse = None
+    fp = 0.0
+    t0 = time.monotonic()
+
+    def body():
+        nonlocal rmse, fp
+        for i in range(start_iter, cfg.train.num_iters):
+            if getattr(args, "kill_at", 0) \
+                    and rank == getattr(args, "kill_rank", -1) \
+                    and i == args.kill_at:
+                os._exit(137)
+            sel = rng.integers(0, data["rating"].shape[0], size=B)
+            u_keys, i_keys = data["user"][sel], data["item"][sel]
+            u_rows = torch.from_numpy(user_t.pull(u_keys)).to(dev)
+            i_rows = torch.from_numpy(item_t.pull(i_keys)).to(dev)
+            loss, gu, gi = mf_model.grad_fn(
+                u_rows, i_rows,
+                {"rating": torch.from_numpy(data["rating"][sel]).to(dev)},
+                mu=MU, reg=REG)
+            # x B: per-sample server-add magnitude (the spmd path's
+            # grad_scale)
+            user_t.push(u_keys, gu.cpu().numpy() * float(B))
+            item_t.push(i_keys, gi.cpu().numpy() * float(B))
+            losses.append(float(loss))
+            trainer.tick()
+            save_hook(i)
+            if rank == getattr(args, "slow_rank", -1) \
+                    and getattr(args, "slow_ms", 0) > 0:
+                time.sleep(args.slow_ms / 1000.0)
+        trainer.finalize(timeout=30.0)
+        rmse = _score_holdout_rmse({}, holdout, user_t, item_t,
+                                   metrics).get("rmse")
+        fp = (float(np.sum(user_t.pull_all()))
+              + float(np.sum(item_t.pull_all())))
+        trainer.shutdown_barrier(timeout=10.0)
+
+    code = run_multiproc_body(rank, trainer, body)
+    if code == 0:
+        table_bytes = table_state_bytes(num_users + num_items, dim, updater)
+        metrics.log(final_loss=losses[-1] if losses else None)
+        emit_multiproc_done(
+            trainer, rank, t0, losses, table_bytes, fp,
+            push_comm=push_comm, rmse=rmse, resumed_from=start_iter,
+            device=str(dev))
+    monitor.stop()
+    bus.close()
+    if code:
+        sys.exit(code)
+    return {"losses": losses, "rmse": rmse}
+
+
 def _flags(parser):
     parser.add_argument("--data_file", default=None,
                         help="MovieLens ratings file (ratings.csv, "
                              "ratings.dat, or u.data) instead of synthetic")
     parser.add_argument("--eval_frac", type=float, default=None,
                         help="fraction of ratings held out and scored by "
-                             "RMSE after training; 0 disables (the "
-                             "default)")
+                             "RMSE after training; 0 disables (default: 0 "
+                             "for spmd/threaded, 0.1 for multiproc)")
+    from minips_tpu_torch.apps.common import add_push_comm_flag
+
+    add_push_comm_flag(parser)
+    # multiproc straggler/fault injection (smoke tests)
+    parser.add_argument("--slow-rank", dest="slow_rank", type=int,
+                        default=-1)
+    parser.add_argument("--slow-ms", dest="slow_ms", type=float,
+                        default=0.0)
+    parser.add_argument("--kill-at", dest="kill_at", type=int, default=0)
+    parser.add_argument("--kill-rank", dest="kill_rank", type=int,
+                        default=-1)
 
 
 def main():

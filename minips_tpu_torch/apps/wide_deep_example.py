@@ -16,8 +16,14 @@ Two modes:
 the synthetic rows; with ``--stream`` (spmd only) a producer thread parses
 it in chunks while training runs, and the file is never resident.
 ``--eval_frac`` holds rows out and scores them by streaming ROC-AUC.
-``--exec multiproc`` (ROADMAP.md queue 1 item 15) is not ported yet and
-raises.
+
+``--exec multiproc`` runs one launcher rank (``launch.py``) of the
+key-range-sharded PS (``train/sharded_ps.py``): the wide, emb and deep
+tables partitioned over the processes, the servers numpy on the host, and
+this rank's model step by autograd on its device (``multiproc_device``:
+``cuda:{MINIPS_LOCAL_RANK mod device_count}``, the CPU under
+``MINIPS_FORCE_CPU`` or ``--device cpu``). It prints the launcher
+protocol's done line.
 
 ``run(cfg, args, metrics, group)`` runs one rank of a process group (the
 CLI's ``--ranks N``): both hashed tables and the deep tower are
@@ -31,6 +37,8 @@ Usage: python -m minips_tpu_torch.apps.wide_deep_example --model deepfm \\
     --exec threaded --consistency ssp --staleness 2
        python -m minips_tpu_torch.apps.wide_deep_example --device cpu \\
     --ranks 2 --exec threaded
+       MINIPS_FORCE_CPU=1 python -m minips_tpu_torch.launch --n 2 -- \\
+    python -m minips_tpu_torch.apps.wide_deep_example --exec multiproc
 """
 
 from __future__ import annotations
@@ -46,7 +54,7 @@ from minips_tpu_torch.data.criteo import (log_transform, read_criteo,
 from minips_tpu_torch.data.loader import BatchIterator
 from minips_tpu_torch.models import wide_deep as wd_model
 from minips_tpu_torch.parallel.mesh import DeviceLike, Group, resolve_device
-from minips_tpu_torch.tables.dense import DenseTable
+from minips_tpu_torch.tables.dense import DenseTable, ravel
 from minips_tpu_torch.tables.sparse import SparseTable, collision_stats
 from minips_tpu_torch.train.loop import TrainLoop
 from minips_tpu_torch.train.ps_step import PSTrainStep
@@ -133,8 +141,7 @@ def run(cfg: Config, args, metrics, group: Group = None) -> dict:
     if stream and mode != "spmd":
         raise SystemExit("--stream is only wired into --exec spmd")
     if mode == "multiproc":
-        raise SystemExit("--exec multiproc is not ported yet (ROADMAP.md "
-                         "queue 1 item 15: the sharded PS)")
+        return _run_multiproc(cfg, args, metrics, use_fm=use_fm)
     path = getattr(args, "data_file", None)
     if stream and not path:
         raise SystemExit("--stream needs --data_file (a file to stream)")
@@ -280,6 +287,192 @@ def _run_threaded(cfg: Config, args, metrics, data, holdout, *,
          "tables": (wide_t, emb_t, deep_t)}, metrics)
 
 
+def _run_multiproc(cfg: Config, args, metrics, *, use_fm: bool) -> dict:
+    """The flagship sparse workload on the key-range-sharded PS: N
+    launcher processes, each with its own Criteo data shard; wide/emb
+    tables partitioned across processes (per-process memory ~1/N), pushes
+    ship only the batch's touched rows per owner; the deep tower rides the
+    dense range path; BSP/SSP/ASP via the owner-side staleness gate.
+    Prints the one-JSON-line launcher protocol."""
+    import os
+    import sys
+    import time
+
+    import numpy as np
+
+    from minips_tpu_torch.apps.common import (emit_multiproc_done,
+                                              init_multiproc,
+                                              multiproc_device,
+                                              run_multiproc_body,
+                                              shard_checkpointing)
+    from minips_tpu_torch.tables.sparse import hash_to_slots_np
+    from minips_tpu_torch.train.sharded_ps import (ShardedPSTrainer,
+                                                   ShardedTable,
+                                                   table_state_bytes)
+    from minips_tpu_torch.utils.evaluation import StreamingAUC, padded_chunks
+
+    # the device first: a card's first context must not stall the
+    # heartbeats that init_multiproc starts
+    dev = multiproc_device(getattr(args, "device", None))
+    rank, nprocs, bus, monitor, staleness = init_multiproc(
+        cfg.table.consistency, cfg.table.staleness)
+
+    path = getattr(args, "data_file", None)
+    if path:  # real Criteo TSV; round-robin row shard per rank
+        raw = read_criteo(path)
+        data = {"dense": log_transform(raw["dense"], raw["dense_mask"]),
+                "cat": raw["cat"], "y": raw["y"]}
+        data = {k: v[rank::nprocs] for k, v in data.items()}
+    else:  # per-rank synthetic shard (disjoint seeds, shared signal)
+        data = synthetic.criteo_like(8192, seed=100 + rank)
+    # explicit --eval_frac 0 disables eval; only an UNSET flag takes the
+    # multiproc default of 0.2
+    frac = getattr(args, "eval_frac", None)
+    frac = 0.2 if frac is None else frac
+    data, holdout = holdout_split(data, frac, seed=cfg.train.seed)
+
+    slots = cfg.table.num_slots
+    emb_dim = cfg.table.dim
+    coll = _log_collisions(metrics, data["cat"], slots)
+    updater = cfg.table.updater  # sgd/adagrad/adam all server-side
+    push_comm = getattr(args, "push_comm", "float32")
+
+    def mk(name, dim, scale, seed, comm="float32"):
+        return ShardedTable(name, slots, dim, bus, rank, nprocs,
+                            updater=updater, lr=cfg.table.lr,
+                            init_scale=scale, seed=seed, monitor=monitor,
+                            pull_timeout=30.0, push_comm=comm)
+    # --push-comm compresses only the wide-DIMENSION table (emb): at dim
+    # 1 (wide) the per-row f32 scale outweighs the int8 saving
+    wide_t = mk("wide", 1, 0.0, 1)
+    emb_t = mk("emb", emb_dim, 0.01, 2, comm=push_comm)
+    # deep tower: a flat parameter vector on the dense range path (adagrad
+    # server-side), in ravel_pytree's layout. Every rank, on the card or
+    # the CPU, draws the same initial vector from a CPU generator seeded
+    # with seed + 2 (the JAX package's PRNGKey(seed + 2) draws other
+    # numbers; tests carry its weights across); the table stores the
+    # DELTA from it, so the zero table needs no init broadcast and range
+    # pushes stay pure gradients
+    deep0 = wd_model.init_deep(torch.Generator().manual_seed(
+        cfg.train.seed + 2), NUM_CAT, emb_dim, NUM_DENSE, device="cpu")
+    deep_flat0, unravel = ravel(deep0)
+    n_deep = deep_flat0.shape[0]
+    deep_flat0 = deep_flat0.to(dev)
+    deep_t = ShardedTable("deep", n_deep, 1, bus, rank, nprocs,
+                          updater="adagrad", lr=0.02, monitor=monitor,
+                          pull_timeout=30.0)
+    trainer = ShardedPSTrainer(
+        {"wide": wide_t, "emb": emb_t, "deep": deep_t}, bus, nprocs,
+        staleness=staleness, gate_timeout=30.0, monitor=monitor)
+    resume = shard_checkpointing(bus, nprocs, cfg.train.checkpoint_dir,
+                                 rank)
+    bus.handshake(nprocs)
+    start_iter, save_hook = resume(
+        {"wide": wide_t, "emb": emb_t, "deep": deep_t, "trainer": trainer},
+        cfg.train.checkpoint_every)
+
+    def on_dev(x):
+        return torch.from_numpy(x).to(dev)
+
+    def wd_grads(wide_rows, emb_rows, deep_vec, batch):
+        leaves = [x.requires_grad_() for x in (wide_rows, emb_rows,
+                                               deep_vec)]
+        w, e, dv = leaves
+        loss = wd_model.loss(w, e, unravel(dv[:, 0] + deep_flat0), batch,
+                             use_fm=use_fm)
+        return (loss.detach(),) + torch.autograd.grad(loss, leaves)
+
+    B = cfg.train.batch_size
+    # resumed runs reseed on (rank, start): sampling is with-replacement,
+    # so resume is convergence-equivalent, not bit-exact
+    rng = np.random.default_rng((rank, start_iter))
+    losses = []
+    auc_val = None
+    fp = 0.0
+    t0 = time.monotonic()
+
+    def body():
+        nonlocal auc_val, fp
+        for i in range(start_iter, cfg.train.num_iters):
+            kill_at = getattr(args, "kill_at", 0)
+            if kill_at and rank == getattr(args, "kill_rank", -1) \
+                    and i == kill_at:
+                os._exit(137)
+            sel = rng.integers(0, data["y"].shape[0], size=B)
+            cats = data["cat"][sel]
+            wide_keys = hash_to_slots_np(cats, slots, 1).reshape(-1)
+            emb_keys = hash_to_slots_np(cats, slots, 2).reshape(-1)
+            wide_rows = wide_t.pull(wide_keys).reshape(B, NUM_CAT, 1)
+            emb_rows = emb_t.pull(emb_keys).reshape(B, NUM_CAT, emb_dim)
+            deep_vec = deep_t.pull_all()
+            loss, gw, ge, gd = wd_grads(
+                on_dev(wide_rows), on_dev(emb_rows), on_dev(deep_vec),
+                {"dense": on_dev(data["dense"][sel]),
+                 "y": on_dev(data["y"][sel])})
+            wide_t.push(wide_keys, gw.cpu().numpy().reshape(-1, 1))
+            emb_t.push(emb_keys, ge.cpu().numpy().reshape(-1, emb_dim))
+            deep_t.push_dense(gd.cpu().numpy())
+            losses.append(float(loss))
+            trainer.tick()
+            save_hook(i)
+            slow_rank = getattr(args, "slow_rank", -1)
+            if rank == slow_rank and getattr(args, "slow_ms", 0) > 0:
+                time.sleep(args.slow_ms / 1000.0)
+        trainer.finalize(timeout=30.0)
+        # ---- streaming holdout AUC on the FINAL shared tables
+        if holdout is not None:
+            auc = StreamingAUC()
+            deep_final = unravel(on_dev(deep_t.pull_all())[:, 0]
+                                 + deep_flat0)
+            with torch.no_grad():
+                for chunk, n_valid in padded_chunks(holdout, 4096):
+                    cats = chunk["cat"]
+                    cb = cats.shape[0]
+                    w_rows = wide_t.pull(
+                        hash_to_slots_np(cats, slots, 1).reshape(-1)
+                    ).reshape(cb, NUM_CAT, 1)
+                    e_rows = emb_t.pull(
+                        hash_to_slots_np(cats, slots, 2).reshape(-1)
+                    ).reshape(cb, NUM_CAT, emb_dim)
+                    lg = wd_model.logits(
+                        on_dev(w_rows), on_dev(e_rows), deep_final,
+                        {"dense": on_dev(chunk["dense"])}, use_fm=use_fm)
+                    auc.update(lg.cpu().numpy()[:n_valid],
+                               chunk["y"][:n_valid])
+            auc_val = auc.result()
+        # fingerprints for the replica-agreement assertion
+        fp = (float(np.sum(wide_t.pull_all()))
+              + float(np.sum(emb_t.pull_all()))
+              + float(np.sum(deep_t.pull_all())))
+        trainer.shutdown_barrier(timeout=10.0)
+
+    code = run_multiproc_body(rank, trainer, body)
+    if code == 0:
+        # deep table is always adagrad server-side (shard + accumulator)
+        table_bytes = (table_state_bytes(slots, 1, updater)        # wide
+                       + table_state_bytes(slots, emb_dim, updater)  # emb
+                       + table_state_bytes(n_deep, 1, "adagrad"))  # deep
+        # metrics BEFORE the protocol line: the launcher harvests the LAST
+        # JSON line on stdout as the result dict
+        metrics.log(final_loss=losses[-1] if losses else None,
+                    holdout_auc=auc_val)
+        emit_multiproc_done(
+            trainer, rank, t0, losses, table_bytes, fp,
+            auc=auc_val, resumed_from=start_iter,
+            push_comm=push_comm, device=str(dev),
+            emb_collision_rate=coll["emb"]["collision_rate"],
+            emb_unique_keys=coll["emb"]["unique_keys"],
+            # embedding-table wire alone: the row-sparse claim is about
+            # these (the deep tower is inherently dense-range traffic)
+            sparse_bytes_pushed=wide_t.bytes_pushed + emb_t.bytes_pushed,
+            emb_bytes_pushed=emb_t.bytes_pushed)
+    monitor.stop()
+    bus.close()
+    if code:
+        sys.exit(code)
+    return {"losses": losses, "auc": auc_val}
+
+
 def _flags(parser):
     parser.add_argument("--model", default="widedeep",
                         choices=["widedeep", "deepfm"])
@@ -296,7 +489,20 @@ def _flags(parser):
                              "(master tables stay float32)")
     parser.add_argument("--eval_frac", type=float, default=None,
                         help="fraction of rows held out and scored by "
-                             "streaming ROC-AUC after training; 0 disables")
+                             "streaming ROC-AUC after training; 0 disables "
+                             "(default: 0 for spmd/threaded, 0.2 for "
+                             "multiproc)")
+    from minips_tpu_torch.apps.common import add_push_comm_flag
+
+    add_push_comm_flag(parser)
+    # multiproc straggler/fault injection (smoke tests)
+    parser.add_argument("--slow-rank", dest="slow_rank", type=int,
+                        default=-1)
+    parser.add_argument("--slow-ms", dest="slow_ms", type=float,
+                        default=0.0)
+    parser.add_argument("--kill-at", dest="kill_at", type=int, default=0)
+    parser.add_argument("--kill-rank", dest="kill_rank", type=int,
+                        default=-1)
 
 
 def main():

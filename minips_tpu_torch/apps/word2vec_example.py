@@ -20,10 +20,15 @@ drops frequent words. ``run(cfg, args, metrics, group)`` runs one rank of
 a process group (the CLI's ``--ranks N``), both tables range-sharded over
 the ranks: in spmd mode every rank draws the same global batch and steps
 on its rows of it, in threaded mode rank 0 runs the workers and the
-other ranks serve (``core/engine.py``). ``--exec multiproc`` (ROADMAP.md
-queue 1 items 14-15) is not ported yet and raises.
+other ranks serve (``core/engine.py``). ``--exec multiproc`` runs one
+launcher rank (``launch.py``) of the key-range-sharded PS
+(``train/sharded_ps.py``): the vocabulary's in and out rows partitioned
+over the processes, the servers numpy on the host, this rank's step by
+autograd on its device (``multiproc_device``).
 
 Usage: python -m minips_tpu_torch.apps.word2vec_example --num_iters 200
+       MINIPS_FORCE_CPU=1 python -m minips_tpu_torch.launch --n 2 -- \\
+    python -m minips_tpu_torch.apps.word2vec_example --exec multiproc
 """
 
 from __future__ import annotations
@@ -106,8 +111,7 @@ def run(cfg: Config, args, metrics, group: Group = None) -> dict:
     and ``args``."""
     mode = getattr(args, "exec_mode", "spmd")
     if mode == "multiproc":
-        raise SystemExit("--exec multiproc is not ported yet (ROADMAP.md "
-                         "queue 1 items 14-15: the sharded PS)")
+        return _run_multiproc(cfg, args, metrics)
     device = resolve_device(getattr(args, "device", None))
     in_t, out_t = make_tables(cfg, device, group)
     if mode == "threaded":
@@ -194,6 +198,108 @@ def _run_threaded(cfg, args, metrics, in_t, out_t, group) -> dict:
             "tables": (in_t, out_t)}
 
 
+def _run_multiproc(cfg: Config, args, metrics, vocab: int = VOCAB) -> dict:
+    """Skip-gram negative sampling on the key-range-sharded PS: in/out
+    embedding tables partitioned across launcher processes by vocab-id
+    range — exact per-word rows. The default is ASP (BASELINE.json:11
+    "async push"): a pull never parks and pushes land as they arrive;
+    --consistency ssp/bsp bounds or removes the drift."""
+    import os
+    import sys
+
+    from minips_tpu_torch.apps.common import (emit_multiproc_done,
+                                              init_multiproc,
+                                              multiproc_device,
+                                              run_multiproc_body,
+                                              shard_checkpointing)
+    from minips_tpu_torch.train.sharded_ps import (ShardedPSTrainer,
+                                                   ShardedTable,
+                                                   table_state_bytes)
+
+    dev = multiproc_device(getattr(args, "device", None))
+    rank, nprocs, bus, monitor, staleness = init_multiproc(
+        cfg.table.consistency, cfg.table.staleness)
+
+    # tokenize once per rank (same corpus, deterministic), shard the PAIR
+    # stream round-robin; counts (and so the vocab and the negative-
+    # sampling distribution) stay global and identical on every rank
+    centers, contexts, counts = pairs(cfg, args, vocab)
+    centers, contexts = centers[rank::nprocs], contexts[rank::nprocs]
+    vocab = len(counts)
+
+    dim = cfg.table.dim
+    updater = cfg.table.updater  # sgd/adagrad/adam all server-side
+    push_comm = getattr(args, "push_comm", "float32")
+    mk = lambda name, scale, seed: ShardedTable(  # noqa: E731
+        name, vocab, dim, bus, rank, nprocs, updater=updater,
+        lr=cfg.table.lr, init_scale=scale, seed=seed, monitor=monitor,
+        pull_timeout=30.0, push_comm=push_comm)
+    in_t = mk("in", 0.01, 1)
+    out_t = mk("out", 0.0, 2)
+    trainer = ShardedPSTrainer({"in": in_t, "out": out_t}, bus, nprocs,
+                               staleness=staleness, gate_timeout=30.0,
+                               monitor=monitor)
+    resume = shard_checkpointing(bus, nprocs, cfg.train.checkpoint_dir,
+                                 rank)
+    bus.handshake(nprocs)
+    start_iter, save_hook = resume(
+        {"in": in_t, "out": out_t, "trainer": trainer},
+        cfg.train.checkpoint_every)
+
+    B = cfg.train.batch_size
+    # resumed runs reseed on start_iter: sampling is with-replacement, so
+    # resume is convergence-equivalent, not bit-exact
+    batches = batch_gen(cfg, centers, contexts, counts,
+                        (cfg.train.seed + rank, start_iter))
+    losses = []
+    fp = 0.0
+    t0 = time.monotonic()
+
+    def body():
+        nonlocal fp
+        for i in range(start_iter, cfg.train.num_iters):
+            if getattr(args, "kill_at", 0) \
+                    and rank == getattr(args, "kill_rank", -1) \
+                    and i == args.kill_at:
+                os._exit(137)
+            b = next(batches)
+            okeys = np.concatenate([b["pos"][:, None], b["neg"]],
+                                   axis=1).reshape(-1)  # [B * (1+NEG)]
+            c_rows = torch.from_numpy(in_t.pull(b["center"])).to(dev)
+            o_rows = torch.from_numpy(out_t.pull(okeys)).to(dev).reshape(
+                B, 1 + NEG, dim)
+            loss, gc, gp, gn = w2v.grad_fn(c_rows, o_rows[:, 0],
+                                           o_rows[:, 1:])
+            # x B: per-sample server-add magnitude (the classic per-pair
+            # SGNS update; the spmd path's grad_scale)
+            in_t.push(b["center"], gc.cpu().numpy() * float(B))
+            out_t.push(okeys, torch.cat([gp[:, None], gn], dim=1)
+                       .reshape(-1, dim).cpu().numpy() * float(B))
+            losses.append(float(loss))
+            trainer.tick()
+            save_hook(i)
+            if rank == getattr(args, "slow_rank", -1) \
+                    and getattr(args, "slow_ms", 0) > 0:
+                time.sleep(args.slow_ms / 1000.0)
+        trainer.finalize(timeout=30.0)
+        fp = (float(np.sum(in_t.pull_all()))
+              + float(np.sum(out_t.pull_all())))
+        trainer.shutdown_barrier(timeout=10.0)
+
+    code = run_multiproc_body(rank, trainer, body)
+    if code == 0:
+        table_bytes = table_state_bytes(2 * vocab, dim, updater)
+        metrics.log(final_loss=losses[-1] if losses else None)
+        emit_multiproc_done(trainer, rank, t0, losses, table_bytes, fp,
+                            resumed_from=start_iter, push_comm=push_comm,
+                            device=str(dev))
+    monitor.stop()
+    bus.close()
+    if code:
+        sys.exit(code)
+    return {"losses": losses}
+
+
 def _flags(parser):
     parser.add_argument("--data_file", default=None,
                         help="text file (enwiki-style) tokenized at word "
@@ -202,6 +308,17 @@ def _flags(parser):
                         help="frequent-word subsampling threshold t "
                              "(classic 1e-5 for enwiki-scale corpora; "
                              "0 disables)")
+    from minips_tpu_torch.apps.common import add_push_comm_flag
+
+    add_push_comm_flag(parser)
+    # multiproc straggler/fault injection (smoke tests)
+    parser.add_argument("--slow-rank", dest="slow_rank", type=int,
+                        default=-1)
+    parser.add_argument("--slow-ms", dest="slow_ms", type=float,
+                        default=0.0)
+    parser.add_argument("--kill-at", dest="kill_at", type=int, default=0)
+    parser.add_argument("--kill-rank", dest="kill_rank", type=int,
+                        default=-1)
 
 
 def main():

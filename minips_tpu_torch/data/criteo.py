@@ -105,12 +105,14 @@ def _parse_lines(lines, where: str = "<lines>") -> dict:
 def read_criteo(path: str, use_native: bool = True,
                 shared: bool = False) -> dict:
     """Returns dict(y, dense, dense_mask, cat) — see module docstring.
-    ``shared=True`` (one parse per host under the multi-process launcher)
-    is not ported yet."""
+    ``shared=True``: under the launcher, only the host's local leader
+    parses; colocated processes mmap the same copy (data/shm_store.py)."""
     if shared:
-        raise NotImplementedError(
-            "read_criteo(shared=True) is not ported yet (ROADMAP.md queue 1 "
-            "items 14-15: data/shm_store.py with the launcher)")
+        from minips_tpu_torch.data.shm_store import make_tag, shared_load
+
+        tag = make_tag("criteo", path)
+        return shared_load(tag, lambda: read_criteo(
+            path, use_native=use_native, shared=False))
     if use_native:
         try:
             from minips_tpu_torch.data.native import read_criteo_native

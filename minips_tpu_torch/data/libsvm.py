@@ -9,9 +9,7 @@ BASELINE.json:7). The Python reader is vectorized per chunk; a C++ reader
 
 Output is padded fixed-width arrays (idx [N, F], val [N, F], mask), the
 static shapes a batch of the fused step has; F = max features per row (or
-the given cap, truncating the tail). ``shared=True`` (one parse per host
-under the multi-process launcher) waits for ``data/shm_store.py``
-(ROADMAP.md queue 1 items 14-15) and raises.
+the given cap, truncating the tail).
 """
 
 from __future__ import annotations
@@ -32,11 +30,15 @@ def write_libsvm(path: str, y: np.ndarray, idx: np.ndarray,
 def read_libsvm(path: str, max_features: int | None = None,
                 use_native: bool = True, shared: bool = False):
     """Returns dict(y [N] float32, idx [N, F] int32, val [N, F] float32,
-    mask [N, F] float32). ``shared=True`` is not ported yet."""
+    mask [N, F] float32). ``shared=True``: under the launcher, only the
+    host's local leader parses; colocated processes mmap the same copy
+    (data/shm_store.py)."""
     if shared:
-        raise NotImplementedError(
-            "read_libsvm(shared=True) is not ported yet (ROADMAP.md queue 1 "
-            "items 14-15: data/shm_store.py with the launcher)")
+        from minips_tpu_torch.data.shm_store import make_tag, shared_load
+
+        tag = make_tag("libsvm", path, max_features)
+        return shared_load(tag, lambda: read_libsvm(
+            path, max_features, use_native=use_native, shared=False))
     if use_native:
         try:
             from minips_tpu_torch.data.native import read_libsvm_native

@@ -92,11 +92,24 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "        'minips_tpu_torch.obs.slowness',\n"
         "        'minips_tpu_torch.obs.freshness',\n"
         "        'minips_tpu_torch.obs.merge',\n"
-        "        'minips_tpu_torch.obs.report'}\n"
+        "        'minips_tpu_torch.obs.report',\n"
+        "        'minips_tpu_torch.launch',\n"
+        "        'minips_tpu_torch.train.sharded_ps',\n"
+        "        'minips_tpu_torch.train.mesh_plane',\n"
+        "        'minips_tpu_torch.ckpt.elastic',\n"
+        "        'minips_tpu_torch.data.shm_store',\n"
+        "        'minips_tpu_torch.tenant',\n"
+        "        'minips_tpu_torch.tenant.registry',\n"
+        "        'minips_tpu_torch.balance',\n"
+        "        'minips_tpu_torch.balance.redistribute',\n"
+        "        'minips_tpu_torch.balance.hier',\n"
+        "        'minips_tpu_torch.serve',\n"
+        "        'minips_tpu_torch.serve.hedge',\n"
+        "        'minips_tpu_torch.apps.sharded_ps_example'}\n"
         "print(len(names), sorted(need - set(names)), bad)\n")
     assert r.returncode == 0, r.stderr
     count, rest = r.stdout.split(" ", 1)
-    assert int(count) >= 75 and rest.strip() == "[] []", r.stdout
+    assert int(count) >= 94 and rest.strip() == "[] []", r.stdout
 
 
 def test_importing_the_build_module_runs_nothing():
@@ -137,6 +150,9 @@ def test_importing_the_build_module_runs_nothing():
     "from minips_tpu_torch.apps.mf_example import main; main()",
     "import sys; sys.argv = ['w2v', '--num_iters', '1']; "
     "from minips_tpu_torch.apps.word2vec_example import main; main()",
+    "import sys; sys.argv = ['wd', '--exec', 'multiproc']; "
+    "from minips_tpu_torch.apps.wide_deep_example import main; main()",
+    "from minips_tpu_torch.apps.sharded_ps_example import main; main([])",
     "import sys; sys.argv = ['lm', '--num_iters', '1']; "
     "from minips_tpu_torch.apps.lm_example import main; main()",
     "import torch; from minips_tpu_torch.models.transformer import "

@@ -213,14 +213,6 @@ def test_word2vec_streams_are_per_worker():
     assert torch.equal(keys[:, 0], torch.as_tensor(first[0]["pos"]))
 
 
-@pytest.mark.parametrize("app", [tmfx, tw2vx])
-def test_multiproc_raises(app):
-    _, tc = _cfgs(app.DEFAULT, "spmd")
-    with pytest.raises(SystemExit, match="items 14-15"):
-        app.run(tc, argparse.Namespace(exec_mode="multiproc", device="cpu"),
-                MetricsLogger(None, verbose=False))
-
-
 def test_word2vec_threaded_four_workers_scale_their_pushes():
     """4 workers under ASP at the app's defaults (sgd, lr 0.05, B 1024):
     each pushes its batch's gradients times B / NW. The JAX package pushes

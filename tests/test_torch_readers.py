@@ -79,13 +79,6 @@ def test_libsvm_block_matches_jax(libsvm_file, use_native):
            jlibsvm.parse_libsvm_block(data, 16, use_native=use_native))
 
 
-def test_shared_reads_wait_for_the_launcher(libsvm_file):
-    with pytest.raises(NotImplementedError, match="items 14-15"):
-        libsvm.read_libsvm(libsvm_file, shared=True)
-    with pytest.raises(NotImplementedError, match="items 14-15"):
-        criteo.read_criteo(libsvm_file, shared=True)
-
-
 # ------------------------------------------------------------------ criteo
 @pytest.fixture
 def criteo_file(tmp_path):

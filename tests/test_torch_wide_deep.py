@@ -121,7 +121,6 @@ def test_threaded_ssp_four_workers_bounds_the_clock_gap(monkeypatch):
 
 
 @pytest.mark.parametrize("kw,match", [
-    ({"exec_mode": "multiproc"}, "item 15"),
     # the readers are ported: --stream needs a file, resident rows for a
     # holdout, and the spmd path
     ({"stream": True}, "needs --data_file"),
