@@ -231,6 +231,24 @@ raises on failure:
     on 3 and on 2 (resharded by ``ckpt/elastic.py``) give the same
     parameter sum; the two drills side by side. No kernel of K1-K4 lies
     on this path.
+29. the armed placement and serving layers of the multi-process PS,
+    through the same launcher on the card. 29a: ``sharded_ps_example``'s
+    sparse LR (Adagrad) on 3 processes under SSP s = 2, every rank
+    pulling a hot range in the second shard 4 extra times a step through
+    most of the run, with the heat rebalancer (``MINIPS_REBALANCE``) and
+    the serving plane's replicas (``MINIPS_SERVE``) armed: a plan
+    adopted everywhere and blocks migrated with their Adagrad state,
+    replicas serving rows, no stale read, no frame dropped, skew at most
+    3, the ranks' weights bitwise equal. 29b: the closed loop of
+    ``tests/test_control_plane.py`` on 4 slots (ranks 0-2 live, 3
+    standby): rank 0, the lease holder, killed at step 8, rank 1 taking
+    the lease at term 1, the storm shedding, rank 1's autoscaler
+    admitting rank 3 and later draining it; the survivors finish every
+    step bitwise equal, with blocks restored from the elastic checkpoint,
+    and the time from the kill to the successor's lease is printed. 29c:
+    28a's BSP Wide&Deep job with the rebalancer, the serving plane and
+    elastic membership armed and idle, its samples/s beside 28a's.
+    Every rank runs on ``cuda:0``. No kernel of K1-K4 lies on this path.
 
 Before it prints its result, and on every way out, the script stops and
 reaps every process it started that still runs: the launcher's fork
@@ -468,6 +486,40 @@ MP_RESUME_ITERS = 16
 MP_ELASTIC_ITERS, MP_ELASTIC_EVERY = 20, 5
 MP_ELASTIC_TOL = 1e-5
 MP_FP_TOL = 1e-4  # replica agreement: fingerprints after finalize
+# phase 29: the armed placement and serving layers (balance/, serve/)
+# under the launcher on the one card. 29a: sharded_ps_example's sparse LR
+# with Adagrad (a migrated block carries its accumulator) on PL_PROCS
+# processes under SSP s = PL_SSP, a storm of PL_STORM_PULLS extra pulls a
+# step of the hot range in the second shard; the rebalancer plans every
+# 0.2 s past a max/mean heat of 1.2, and the serving plane replicates up
+# to 8 hot blocks a tick onto 2 holders under 2 s leases
+PL_PROCS, PL_SSP, PL_ITERS = 3, 2, 40
+PL_STORM = ["--storm-from", "4", "--storm-until", "36", "--storm-pulls",
+            "4", "--storm-keys", "64"]
+PL_REBALANCE = ("interval=0.2,threshold=1.2,max_blocks=8,block=16,topk=32,"
+                "min_heat=10")
+PL_SERVE = "replicas=2,hot=8,interval=0,min_heat=2,lease=2.0"
+# 29b: tests/test_control_plane.py's closed loop, its flags and env as
+# they stand there (4 slots, rank 3 standby; rank 0 SIGKILLed at step 8)
+CL_PROCS, CL_ITERS, CL_KILL_RANK = 4, 60, 0
+CL_FLAGS = ["--model", "sparse", "--mode", "ssp", "--staleness", "2",
+            "--iters", str(CL_ITERS), "--batch", "64",
+            "--checkpoint-every", "5", "--slow-rank", "1", "--slow-ms", "15",
+            "--storm-from", "14", "--storm-until", "34", "--storm-pulls",
+            "12", "--storm-keys", "64"]
+CL_ENV = {"MINIPS_ELASTIC": "live=0-2",
+          "MINIPS_AUTOSCALE": "up_shed=4,up_after=2,down_after=4,cool=2",
+          "MINIPS_SERVE": "rate=60,burst=8,min_heat=1e9",
+          "MINIPS_CHAOS_KILL": f"7:rank={CL_KILL_RANK},step=8",
+          "MINIPS_HEARTBEAT": "interval=0.1,timeout=6.0,stall=2.0"}
+# 29c: 28a's BSP job with the layers armed and idle: the heat accounting
+# and its reports run, but the planner's and the serving plane's
+# thresholds sit above any heat the job makes (at the rebalancer's
+# defaults 200 steps of it migrate blocks, and a rank then holds more
+# than its half of the tables: not idle)
+IDLE_ENV = {"MINIPS_REBALANCE": "min_heat=1e18",
+            "MINIPS_SERVE": "replicas=1,min_heat=1e9",
+            "MINIPS_ELASTIC": "1"}
 
 
 def check(cond: bool, msg: str) -> None:
@@ -2731,6 +2783,225 @@ def multiproc_phase(card: str, ratings: str) -> dict:
     return out
 
 
+def pl_serve_rows(r: dict) -> dict:
+    """A done line's owner-served and replica-served pull rows, and the
+    serving plane's sheds, backpressures and stale reads."""
+    sv = r["serve"]
+    rep = sv["replica"] or {}
+    return {"owner_rows": sv["pull_rows"],
+            "replica_rows": rep["replica_served_rows"]
+            + rep["replica_local_rows"],
+            "sheds": rep["shed_redirects"] + rep["shed_partial"],
+            "backpressure": rep["backpressure"],
+            "grants": rep["grants"], "revokes": rep["revokes"],
+            "stale_reads": rep["stale_reads"]}
+
+
+def timed_job_raw(n: int, module: str, flags: list, env: dict) -> tuple:
+    """``launch.run_local_job_raw``'s drill path (every JSON line of every
+    rank, failures tolerated, no rank killed for another's exit), with
+    each rank's exit time on ``time.monotonic`` (the clock the flight
+    recorder stamps its events with, shared by the host's processes).
+    Returns (exit codes, events, exit times)."""
+    import tempfile
+
+    from minips_tpu_torch import launch
+
+    argv = [sys.executable, "-m", f"minips_tpu_torch.apps.{module}"] + flags
+    base = launch.find_free_base_port(n)
+    hosts = ["localhost"] * n
+    outs = [tempfile.NamedTemporaryFile("w+", delete=False) for _ in hosts]
+    procs = []
+    for rank in range(n):
+        renv = launch.child_env(rank, hosts, base)
+        renv.update(env, PYTHONPATH=REPO)
+        procs.append(launch._spawn_rank(argv, renv, outs[rank]))
+    exits = [None] * n
+    deadline = time.monotonic() + MP_JOB_TIMEOUT_S
+    while None in exits and time.monotonic() < deadline:
+        for i, p in enumerate(procs):
+            if exits[i] is None and p.poll() is not None:
+                exits[i] = time.monotonic()
+        time.sleep(0.01)
+    for p in procs:
+        if p.poll() is None:
+            p.kill()
+            p.wait(timeout=10)
+    events = []
+    for f in outs:
+        f.seek(0)
+        events.append([json.loads(ln) for ln in f.read().splitlines()
+                       if ln.strip().startswith("{")])
+        f.close()
+        os.unlink(f.name)
+    return [p.poll() for p in procs], events, exits
+
+
+def placement_phase(card: str, wd_bsp: dict) -> dict:
+    """Phase 29: the heat rebalancer, the serving plane, the coordinator
+    lease, elastic membership and the autoscaler, armed in the port's
+    ``ShardedPSTrainer`` and driven by launched jobs on the card (29a-29c;
+    ``wd_bsp`` is 28a's BSP numbers, printed beside 29c's). No kernel of
+    K1-K4 lies on this path. Returns the numbers printed."""
+    from minips_tpu_torch.balance.redistribute import state_row_bytes
+
+    out = {}
+    root = os.path.join(REPO, "build", "chip_smoke_pl")
+    shutil.rmtree(root, ignore_errors=True)
+    # ---- 29a: migration and replicas under a storm
+    t0 = time.perf_counter()
+    res = mp_job(PL_PROCS, "sharded_ps_example", [
+        "--model", "sparse", "--mode", "ssp", "--staleness", str(PL_SSP),
+        "--updater", "adagrad", "--iters", str(PL_ITERS)] + PL_STORM,
+        env={"MINIPS_REBALANCE": PL_REBALANCE, "MINIPS_SERVE": PL_SERVE})
+    rb = [r["rebalance"] for r in res]
+    rows = [pl_serve_rows(r) for r in res]
+    for r in res:
+        tag = f"phase 29a: rank {r['rank']}"
+        check(r["event"] == "done" and r["clock"] == PL_ITERS
+              and r["device"] == "cuda:0", f"{tag}: {r}")
+        check(r["frames_dropped"] == 0 and r["wire_frames_lost"] == 0,
+              f"{tag}: frames dropped {r['frames_dropped']}, lost "
+              f"{r['wire_frames_lost']}")
+        check(r["max_skew_seen"] <= PL_SSP + 1, f"{tag}: skew "
+              f"{r['max_skew_seen']}")
+        check(r["rebalance"]["epoch"] >= 1, f"{tag}: adopted no plan: "
+              f"{r['rebalance']}")
+        check(math.isfinite(r["loss_last"]), f"{tag}: loss {r['loss_last']}")
+    check(sum(x["plans"] for x in rb) >= 1
+          and sum(x["blocks_in"] for x in rb) >= 1,
+          f"phase 29a: nothing migrated: {rb}")
+    check(sum(x["replica_rows"] for x in rows) > 0,
+          f"phase 29a: replicas served no row: {rows}")
+    check(all(x["stale_reads"] == 0 for x in rows),
+          f"phase 29a: stale reads {rows}")
+    check(len({r["param_sum"] for r in res}) == 1
+          and len({r["param_norm"] for r in res}) == 1,
+          "phase 29a: the ranks' weights differ: "
+          f"{[(r['param_sum'], r['param_norm']) for r in res]}")
+    row_bytes = state_row_bytes(1, "adagrad")
+    out["29a"] = {
+        "wall_s": [r["wall_s"] for r in res],
+        "samples_per_s": [round(256 * r["clock"] / r["wall_s"], 1)
+                          for r in res],
+        "plans": sum(x["plans"] for x in rb),
+        "epoch": [x["epoch"] for x in rb],
+        "blocks_moved": sum(x["blocks_in"] for x in rb),
+        "rows_moved": sum(x["migrated_rows"] for x in rb),
+        "bytes_moved": sum(x["migrated_rows"] for x in rb) * row_bytes,
+        "serve": rows, "max_skew": [r["max_skew_seen"] for r in res],
+        "s": round(time.perf_counter() - t0, 1)}
+    print(f"rebalancer and replicas under a pull storm on {PL_PROCS} "
+          f"processes sharing {card} (phase 29a; samples/s = B 256 x clock "
+          "/ wall_s, bytes moved = rows moved x Adagrad's state bytes a "
+          "row): " + json.dumps(out["29a"]), flush=True)
+    # ---- 29b: the closed loop
+    t0 = time.perf_counter()
+    flight = os.path.join(root, "flight")
+    rcs, events, exits = timed_job_raw(
+        CL_PROCS, "sharded_ps_example",
+        CL_FLAGS + ["--checkpoint-dir", os.path.join(root, "ck")],
+        dict(CL_ENV, MINIPS_FLIGHT=flight))
+    last = {r: (ev[-1] if ev else {}) for r, ev in enumerate(events)}
+    dones = {r: d for r, d in last.items() if d.get("event") == "done"}
+    check(set(dones) == {1, 2}, f"phase 29b: exit codes {rcs}, last "
+          f"events {last}")
+    check(last[3].get("event") == "drained", "phase 29b: the standby's "
+          f"last event {last[3]}")
+    for r, d in dones.items():
+        m = d["membership"]
+        check(d["clock"] == CL_ITERS and d["wire_frames_lost"] == 0
+              and d["device"] == "cuda:0" and math.isfinite(d["loss_last"]),
+              f"phase 29b: rank {r}: {d}")
+        check(m["dead"] == [CL_KILL_RANK] and m["coord"] == 1
+              and m["lease"]["term"] == 1 and m["left"] == [3],
+              f"phase 29b: rank {r}'s membership {m}")
+    check(last[3].get("device") == "cuda:0", f"phase 29b: rank 3 {last[3]}")
+    check(sum(d["membership"]["blocks_restored"] for d in dones.values())
+          >= 1, "phase 29b: no block restored")
+    check(len({d["param_sum"] for d in dones.values()}) == 1,
+          f"phase 29b: survivors differ: {[d['param_sum'] for d in dones.values()]}")
+    auto = dones[1]["autoscale"] or {}
+    check(auto.get("admits", 0) >= 1 and auto.get("drains", 0) >= 1,
+          f"phase 29b: rank 1's autoscaler {auto}")
+    # the lease moves at the first survivor's term advance (the others,
+    # rank 1 among them, may learn the new term from its heartbeats
+    # before their own verdicts); rank 1's own verdict is its hb_death
+    advances, verdict = [], None
+    for r in range(CL_PROCS):
+        if r == CL_KILL_RANK:
+            continue
+        with open(os.path.join(flight, f"flight-rank{r}.json")) as f:
+            box = json.load(f)
+        for e in box["reasons"]:
+            advances += [e["t_us"] / 1e6] if e["kind"] == "term_advance" \
+                else []
+            if r == 1 and e["kind"] == "hb_death" and verdict is None:
+                verdict = e["t_us"] / 1e6
+    kill_t = exits[CL_KILL_RANK]
+    check(advances and verdict is not None and kill_t is not None,
+          f"phase 29b: term advances {advances}, rank 1's verdict "
+          f"{verdict}, kill exit {kill_t}")
+    out["29b"] = {
+        "exit_codes": rcs,
+        "wall_s": {r: d["wall_s"] for r, d in dones.items()},
+        "samples_per_s": {r: round(64 * d["clock"] / d["wall_s"], 1)
+                          for r, d in dones.items()},
+        "kill_to_lease_s": round(min(advances) - kill_t, 3),
+        "kill_to_rank1_verdict_s": round(verdict - kill_t, 3),
+        "membership": {k: dones[1]["membership"][k] for k in (
+            "live", "dead", "left", "coord", "lease", "epoch",
+            "blocks_restored", "joins", "leaves", "deaths")},
+        "autoscale": {k: auto.get(k) for k in (
+            "admits", "drains", "shed_rate_pre", "shed_rate_post",
+            "p99_hot_ms", "p99_last_ms", "sheds_seen")},
+        "serve": {r: pl_serve_rows(d) for r, d in dones.items()},
+        "standby": {k: last[3].get(k) for k in ("event", "clock",
+                                                 "resumed_from", "wall_s")},
+        "s": round(time.perf_counter() - t0, 1)}
+    print(f"closed loop on {CL_PROCS} slots of {card} (phase 29b; rank "
+          f"{CL_KILL_RANK} killed, the lease to rank 1, the standby "
+          "admitted and drained by rank 1's autoscaler; kill_to_lease_s "
+          "from rank 0's exit to the first term_advance in a survivor's "
+          "flight box, kill_to_rank1_verdict_s to rank 1's hb_death): "
+          + json.dumps(out["29b"]), flush=True)
+    # ---- 29c: the flagship with the layers armed and idle
+    t0 = time.perf_counter()
+    armed = mp_job(MP_PROCS, "wide_deep_example", ["--exec", "multiproc"],
+                   env=IDLE_ENV)
+    for r in armed:
+        check(r["device"] == "cuda:0" and r["rebalance"] is not None
+              and r["serve"]["replica"] is not None
+              and r["membership"] is not None, f"phase 29c: rank "
+              f"{r['rank']}: a layer did not arm, or ran off the card: "
+              f"{r['device']}")
+    mp_contracts("phase 29c BSP, layers armed", armed, skew=1)
+    for r in armed:
+        check(r["rebalance"]["blocks_in"] == 0 and r["rebalance"]["plans"]
+              == 0 and r["serve"]["replica"]["grants"] == 0
+              and r["membership"]["epoch"] == 0, f"phase 29c: rank "
+              f"{r['rank']}'s layers did not stay idle: rebalance "
+              f"{r['rebalance']}, grants {r['serve']['replica']['grants']}")
+    out["29c"] = {"armed": mp_rates(armed, 1024),
+                  "28a_bsp": {k: wd_bsp[k] for k in (
+                      "samples_per_s", "samples_per_s_all")},
+                  "blocks_moved": sum(r["rebalance"]["blocks_in"]
+                                      for r in armed),
+                  "grants": sum(r["serve"]["replica"]["grants"]
+                                for r in armed),
+                  "s": round(time.perf_counter() - t0, 1)}
+    print(f"multiproc Wide&Deep BSP with the rebalancer, the serving plane "
+          f"and membership armed, on {MP_PROCS} processes (phase 29c), "
+          "beside 28a's BSP in this run: " + json.dumps(out["29c"]),
+          flush=True)
+    shutil.rmtree(root, ignore_errors=True)
+    print("K1-K4 on phase 29's path: none launched (the servers, the "
+          "migrations and the replicas run in numpy on the host; each "
+          "rank's step is autograd through cuBLAS and PyTorch's own "
+          "kernels)", flush=True)
+    return out
+
+
 def multiproc_cards(n: int) -> dict:
     """``--ranks n``'s phase 28a: Wide&Deep's BSP job as n launched
     processes, one card each, beside MP_PROCS processes that share card 0,
@@ -3855,11 +4126,15 @@ def main() -> int:
     t0 = time.perf_counter()
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
-    multiproc_phase(card, ratings)
+    mp = multiproc_phase(card, ratings)
     os.remove(ratings)
     phase_s["28"] = time.perf_counter() - t0
+    # --------- 29. the placement and serving layers, armed, on the card
+    t0 = time.perf_counter()
+    placement_phase(card, mp["28a"]["bsp"])
+    phase_s["29"] = time.perf_counter() - t0
     print("LM decoding (phase 19): " + json.dumps(decoding), flush=True)
-    print("seconds taken by phases 17-28: " + json.dumps(phase_s),
+    print("seconds taken by phases 17-29: " + json.dumps(phase_s),
           flush=True)
 
     kernels[0]["launches_by_path"] = dict(

@@ -17,10 +17,13 @@ Two models:
 - ``--model sparse``: RCV1-shaped sparse LR — the per-key PS workload;
   only the batch's touched rows ride the wire.
 
-The elastic-membership and pull-storm flags of the JAX app (``--join-at``,
-``--drain-at``, ``--coord-plan-at``, ``--storm-*``) drive layers that are
-not ported yet (membership, the serving plane) and raise
-``NotImplementedError`` (ROADMAP.md queue 1 item 14.2b).
+Elastic membership (``MINIPS_ELASTIC``: ``--join-at``, ``--drain-at``,
+SIGTERM, the standby loop), the coordinator-lease fence drill
+(``--coord-plan-at``) and the pull storm (``--storm-*``, the load the
+serving plane's admission sheds and the autoscaler watches) run as in the
+JAX app. Every rank, a standby included, warms its card before the
+heartbeat monitor starts (``apps/common.py`` ``multiproc_device``), so a
+standby's first step after admission finds its context ready.
 
 Run under the launcher:
     MINIPS_FORCE_CPU=1 python -m minips_tpu_torch.launch --n 3 -- \\
@@ -122,16 +125,6 @@ def main(argv=None) -> int:
 
     add_wire_flags(ap)
     args = ap.parse_args(argv)
-    if args.join_at is not None or args.drain_at or args.coord_plan_at:
-        raise NotImplementedError(
-            "--join-at/--drain-at/--coord-plan-at drive elastic membership "
-            "(balance/membership.py), not ported yet (ROADMAP.md queue 1 "
-            "item 14.2b)")
-    if args.storm_until:
-        raise NotImplementedError(
-            "--storm-from/--storm-until drive the serving plane's admission "
-            "(serve/plane.py), not ported yet (ROADMAP.md queue 1 item "
-            "14.2b)")
     if os.environ.get("MINIPS_FORCE_CPU") and args.device is None:
         args.device = "cpu"
 
@@ -175,6 +168,27 @@ def main(argv=None) -> int:
     trainer = ShardedPSTrainer({"w": table}, bus, nprocs,
                                staleness=staleness, gate_timeout=30.0,
                                monitor=monitor)
+    # elastic membership (MINIPS_ELASTIC, balance/membership.py): bind
+    # the death path's checkpoint dir and the preemption signal before
+    # any traffic — SIGTERM and the mbDr control frame both drain
+    mb = trainer.membership
+    if mb is not None:
+        if mb.standby and args.model == "dense":
+            # dense pull_all assembles whole shards from LIVE ranks: a
+            # standby's home range is covered only once the bootstrap
+            # plan lands, and the dense loop reads before the first
+            # tick — refuse loudly instead of assembling torn rows
+            print(json.dumps({
+                "rank": rank, "event": "error",
+                "err": "MINIPS_ELASTIC with standby ranks requires "
+                       "--model sparse (dense pull_all reads before "
+                       "the bootstrap migration lands)"}), flush=True)
+            return 2
+        import signal as _signal
+
+        mb.bind_checkpoint(args.checkpoint_dir)
+        _signal.signal(_signal.SIGTERM,
+                       lambda *_a: mb.begin_drain())
     # shard checkpoint/resume (reference Dump/Load, SURVEY.md §3.5): the
     # whole negotiate→prune→restore→rendezvous protocol lives in
     # apps.common.shard_checkpointing, shared with the flagship W&D app
@@ -182,6 +196,30 @@ def main(argv=None) -> int:
     bus.handshake(nprocs)  # after ALL handlers are registered
     start_iter, save_hook = resume({"w": table, "trainer": trainer},
                                    args.checkpoint_every)
+    if mb is not None and mb.i_am_standby:
+        # standby rank: serve (bus threads) and adopt plans until the
+        # fleet admits me; train from the catch-up clock it hands over.
+        # A pre-admission unrecoverable verdict exits with the same
+        # structured peer_failure/42 protocol as the training body
+        from minips_tpu_torch.consistency.gate import PeerFailureError
+
+        try:
+            start_iter = mb.standby_loop(args.join_at)
+        except PeerFailureError as e:
+            print(json.dumps({"rank": rank, "event": "peer_failure",
+                              "dead": sorted(e.dead),
+                              "at_clock": trainer.clock}), flush=True)
+            return 42
+        if start_iter < 0:
+            # the fleet finished calm without ever needing me (mbEnd):
+            # a standby that was never admitted exits clean, rc 0
+            print(json.dumps({"rank": rank, "event": "standby_unused",
+                              "elastic_spec":
+                                  os.environ.get("MINIPS_ELASTIC")
+                                  or None}), flush=True)
+            monitor.stop()
+            bus.close()
+            return 0
 
     def on_dev(x):
         return torch.from_numpy(np.asarray(x)).to(dev)
@@ -196,6 +234,31 @@ def main(argv=None) -> int:
         loss = lr_model.loss_dense({"w": vec[:-1, 0], "b": vec[-1, 0]},
                                    batch)
         return loss.detach(), torch.autograd.grad(loss, vec)[0]
+
+    storm_keys = None
+    if args.storm_until:
+        if not sparse:
+            print(json.dumps({
+                "rank": rank, "event": "error",
+                "err": "--storm-until requires --model sparse (the "
+                       "storm is per-key pull load)"}), flush=True)
+            return 2
+        # the hot range sits in the SECOND shard: coordinator-kill
+        # drills SIGKILL rank 0, and a hot range on the corpse would
+        # measure restore latency, not autoscaling. A table too small
+        # to hold the range in shard 1 refuses loudly — silently
+        # landing it in shard 0 would break exactly that guarantee
+        shard = -(-num_rows // nprocs)
+        if shard + args.storm_keys > num_rows:
+            print(json.dumps({
+                "rank": rank, "event": "error",
+                "err": f"--storm-keys {args.storm_keys} does not fit "
+                       f"in the second shard (rows {num_rows}, shard "
+                       f"{shard}) — grow --dim or shrink the storm "
+                       "range (it must avoid rank 0, the "
+                       "coordinator-kill target)"}), flush=True)
+            return 2
+        storm_keys = shard + np.arange(args.storm_keys, dtype=np.int64)
 
     own_keys = None
     if args.own_keys_rank == rank:
@@ -233,6 +296,16 @@ def main(argv=None) -> int:
         for i in range(start_iter, args.iters):
             if args.kill_at and rank == args.kill_rank and i == args.kill_at:
                 os._exit(137)
+            if mb is not None and (mb.draining or (
+                    args.drain_at and rank == args.drain_rank
+                    and i == args.drain_at)):
+                # graceful leave: stop training, hand my blocks to
+                # survivors under the fence, exit clean (rc 0) — the
+                # done line below says "drained", never "done"
+                if ahead[2] is not None:
+                    ahead[2].cancel()
+                mb.leave()
+                return
             if sparse:
                 if args.overlap and args.overlap_legs != "push":
                     if ahead[2] is None:  # first batch: nothing in flight
@@ -270,8 +343,31 @@ def main(argv=None) -> int:
                 vec = table.pull_all()
                 loss, g = grads_dense(on_dev(vec), batch)
                 table.push_dense(g.cpu().numpy() / nprocs)
+            if storm_keys is not None \
+                    and args.storm_from <= i < args.storm_until:
+                # the read storm: extra hot-range pulls on top of the
+                # training traffic — with MINIPS_SERVE admission armed
+                # the hot owner sheds/backpressures these (explicit
+                # refusal + bounded retry, never silence), and those
+                # shed counters are the autoscaler's scale-up signal
+                for _ in range(args.storm_pulls):
+                    table.pull(storm_keys)
             losses.append(float(loss))
             trainer.tick()
+            if (args.coord_plan_at and i == args.coord_plan_at
+                    and mb is not None and mb.coord == mb.rank
+                    and not mb.busy):
+                # fence-drill plan noise (see the flag help): issued
+                # POST-tick on the push-driving thread, the same
+                # contract as the planner's own issuance point
+                rb = trainer.rebalancer
+                for name, t in trainer.tables.items():
+                    # one atomic snapshot: epoch AND overlay from the
+                    # same table() read — re-reading router.epoch could
+                    # straddle a concurrent adoption and stamp a stale
+                    # overlay with a fresh epoch
+                    ep, ov = t.router.table()
+                    rb.issue_plan(name, ep + 1, dict(ov))
             save_hook(i)
             if rank == args.slow_rank and args.slow_ms > 0:
                 time.sleep(args.slow_ms / 1000.0)
@@ -290,7 +386,35 @@ def main(argv=None) -> int:
         trainer.shutdown_barrier(timeout=10.0)
 
     code = run_multiproc_body(rank, trainer, body)
-    if code == 0:
+    drained = mb is not None and rank in mb.left
+    if code == 0 and drained:
+        # the graceful-leave exit line: rc 0, zero restored state, no
+        # finalize (the survivors quiesce among themselves)
+        print(json.dumps({
+            "rank": rank, "event": "drained",
+            "device": str(dev),
+            "wall_s": round(time.monotonic() - t0, 4),
+            "loss_last": (float(np.mean(losses[-5:]))
+                          if losses else None),
+            "clock": trainer.clock,
+            # a leaver exiting with resident residual rows would be
+            # silently-lost gradient mass: the drain drill asserts 0
+            "ef": trainer.ef_stats(),
+            "elastic_spec": os.environ.get("MINIPS_ELASTIC") or None,
+            "membership": trainer.membership_stats(),
+            "autoscale": trainer.autoscale_stats(),
+            # sender-side staging evidence: the leaver is the drain's
+            # SOURCE, so its rebalance peak (one-shot p2p ship) and
+            # reshard round/slice counters + per-round peak (planned
+            # mode) are the numbers the live-wire memory leg compares
+            # against the cap
+            "rebalance": trainer.rebalance_stats(),
+            "reshard": trainer.reshard_stats(),
+            "frames_dropped": trainer.frames_dropped,
+            "wire_frames_lost": trainer.wire_frames_lost,
+            "resumed_from": start_iter,
+        }), flush=True)
+    elif code == 0:
         table_bytes = table_state_bytes(num_rows, 1, args.updater)
         print(json.dumps({
             "rank": rank, "event": "done",
@@ -309,6 +433,13 @@ def main(argv=None) -> int:
             "chaos_spec": os.environ.get("MINIPS_CHAOS") or None,
             "reliable_on": os.environ.get("MINIPS_RELIABLE", "")
             not in ("", "0"),
+            # rebalancer echo (env-configured): wire_record below
+            # carries the serve/rebalance counter blocks themselves
+            "rebalance_spec": os.environ.get("MINIPS_REBALANCE") or None,
+            # elastic membership echo + chaos-kill spec: the drills
+            # assert the arm they think they ran really ran
+            "elastic_spec": os.environ.get("MINIPS_ELASTIC") or None,
+            "autoscale_spec": os.environ.get("MINIPS_AUTOSCALE") or None,
             "chaos_kill_spec": os.environ.get("MINIPS_CHAOS_KILL")
             or None,
             # hier-tree echo (wire_record carries its counters)

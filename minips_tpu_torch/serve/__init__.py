@@ -1,8 +1,19 @@
-"""Read-mostly serving for the sharded PS — the part of
-``minips_tpu/serve/`` ported so far: :mod:`minips_tpu_torch.serve.hedge`,
-the hedged-pull config (``MINIPS_HEDGE``) the trainer's constructor reads.
+"""Read-mostly serving plane for the sharded PS — the port of
+``minips_tpu/serve/``, which imports no JAX.
 
-The serving plane and its admission (``plane``, ``admission``) wait for
-ROADMAP.md queue 1 item 14.2b; ``MINIPS_SERVE`` raises
-``NotImplementedError``.
+Snapshot-consistent hot-range read replicas, lease/epoch invalidation
+riding the rebalance fence machinery, per-owner token-bucket admission
+with a replica shed path, SLO latency gates over the obs/ log2
+histograms (:mod:`minips_tpu_torch.serve.plane`,
+:mod:`minips_tpu_torch.serve.admission`), and the hedged-pull config
+(``MINIPS_HEDGE``, :mod:`minips_tpu_torch.serve.hedge`).
+
+Env-gated via ``MINIPS_SERVE`` (off by default); protocol walkthrough
+and the staleness argument: docs/serving.md.
 """
+
+from minips_tpu_torch.serve.admission import TokenBucket
+from minips_tpu_torch.serve.plane import (ServeConfig, ServePlane,
+                                          TableServeState)
+
+__all__ = ["ServeConfig", "ServePlane", "TableServeState", "TokenBucket"]

@@ -4,13 +4,10 @@ numpy on the host, and the apps run each process's model step in PyTorch
 on the process's device (``apps/*_example.py --exec multiproc``).
 
 Not ported yet, and refused with ``NotImplementedError`` where the trainer
-arms them, before any traffic (ROADMAP.md queue 1 item 14.2b): the heat
-rebalancer (``MINIPS_REBALANCE``), the serving plane (``MINIPS_SERVE``),
-elastic membership (``MINIPS_ELASTIC``), the autoscaler
-(``MINIPS_AUTOSCALE``) and the hierarchical push tree's mesh aggregator
+arms it, before any traffic: the hierarchical push tree's mesh aggregator
 (``MINIPS_HIER`` ``agg=mesh``, which waits for ``train/mesh_plane.py``'s
-NCCL tier, item 15). Their handlers below stay as copied, unreachable
-until those layers land.
+NCCL tier, ROADMAP.md queue 1 item 15). Its handler below stays as
+copied, unreachable until that tier lands.
 
 This is the reference's *actual* server topology (SURVEY.md §1 L2, §2
 SimpleRangeManager/ServerThread/KVTable rows): every process hosts a server
@@ -5494,11 +5491,13 @@ class ShardedPSTrainer:
             espec = ""
         self.rebalancer = None
         if (spec and spec != "0") or espec:
-            raise NotImplementedError(
-                "MINIPS_REBALANCE/MINIPS_ELASTIC: the heat rebalancer and "
-                "elastic membership (balance/rebalancer.py, "
-                "balance/membership.py) are not ported yet (ROADMAP.md "
-                "queue 1 item 14.2b)")
+            from minips_tpu_torch.balance.rebalancer import (
+                RebalanceConfig, Rebalancer)
+
+            heat_on = bool(spec and spec != "0")
+            self.rebalancer = Rebalancer(
+                self, RebalanceConfig.parse(spec if heat_on else ""),
+                plan_heat=heat_on)
         # read-mostly serving plane (serve/): OFF by default — explicit
         # spec wins, else $MINIPS_SERVE, else disabled. Constructed
         # AFTER the rebalancer: attach_rebalancer rebuilds router+heat
@@ -5508,12 +5507,23 @@ class ShardedPSTrainer:
             else os.environ.get("MINIPS_SERVE", "")
         self.serve_plane = None
         if sspec and sspec != "0":
-            raise NotImplementedError(
-                "MINIPS_SERVE: the serving plane (serve/plane.py) is not "
-                "ported yet (ROADMAP.md queue 1 item 14.2b)")
-        # elastic membership (balance/membership.py): refused above with
-        # the rebalancer it rides
+            from minips_tpu_torch.serve.plane import ServeConfig, ServePlane
+
+            self.serve_plane = ServePlane(self, ServeConfig.parse(sspec))
+        # elastic membership (balance/membership.py): OFF by default —
+        # ranks join/leave the live job, deaths restore from the
+        # elastic checkpoint onto survivors. Constructed LAST: it rides
+        # the rebalancer (armed above) and hooks the monitor/gate.
         self.membership = None
+        if espec:
+            from minips_tpu_torch.balance.membership import (
+                Membership, MembershipConfig)
+
+            self.membership = Membership(self,
+                                         MembershipConfig.parse(espec))
+            self.gate.membership = self.membership
+            for t in tables.values():
+                t.attach_membership(self.membership)
         # planned collective redistribution (balance/redistribute.py):
         # OFF by default — explicit spec wins, else $MINIPS_RESHARD.
         # Armed, every migration state ship (rebalance plans, demote
@@ -5542,9 +5552,16 @@ class ShardedPSTrainer:
             else os.environ.get("MINIPS_AUTOSCALE", "")
         self.autoscaler = None
         if aspec and aspec != "0":
-            raise NotImplementedError(
-                "MINIPS_AUTOSCALE: the autoscaler (balance/autoscaler.py) "
-                "is not ported yet (ROADMAP.md queue 1 item 14.2b)")
+            if self.membership is None:
+                raise ValueError(
+                    "MINIPS_AUTOSCALE drives elastic membership "
+                    "transitions — arm MINIPS_ELASTIC too (the "
+                    "autoscaler has nothing to scale without it)")
+            from minips_tpu_torch.balance.autoscaler import (
+                AutoscaleConfig, Autoscaler)
+
+            self.autoscaler = Autoscaler(
+                self, self.membership, AutoscaleConfig.parse(aspec))
         # fail-slow plane (serve/hedge.py + obs/slowness.py): OFF by
         # default — explicit specs win, else $MINIPS_HEDGE /
         # $MINIPS_SLOW. Hedging is pure client-side read mitigation

@@ -105,11 +105,19 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "        'minips_tpu_torch.balance.hier',\n"
         "        'minips_tpu_torch.serve',\n"
         "        'minips_tpu_torch.serve.hedge',\n"
+        "        'minips_tpu_torch.serve.admission',\n"
+        "        'minips_tpu_torch.serve.plane',\n"
+        "        'minips_tpu_torch.balance.heat',\n"
+        "        'minips_tpu_torch.balance.rebalancer',\n"
+        "        'minips_tpu_torch.balance.control_plane',\n"
+        "        'minips_tpu_torch.balance.membership',\n"
+        "        'minips_tpu_torch.balance.autoscaler',\n"
+        "        'minips_tpu_torch.data.blocks',\n"
         "        'minips_tpu_torch.apps.sharded_ps_example'}\n"
         "print(len(names), sorted(need - set(names)), bad)\n")
     assert r.returncode == 0, r.stderr
     count, rest = r.stdout.split(" ", 1)
-    assert int(count) >= 94 and rest.strip() == "[] []", r.stdout
+    assert int(count) >= 102 and rest.strip() == "[] []", r.stdout
 
 
 def test_importing_the_build_module_runs_nothing():

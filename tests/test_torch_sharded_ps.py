@@ -406,12 +406,6 @@ def test_owner_side_admission_parks_and_unparks(kinds):
 
 # ------------------------------------------------------------- refusals
 @pytest.mark.parametrize("env,kw,match", [
-    ({"MINIPS_REBALANCE": "1"}, {}, "14.2b"),
-    ({}, {"rebalance": "block=4"}, "14.2b"),
-    ({"MINIPS_ELASTIC": "1"}, {}, "14.2b"),
-    ({"MINIPS_SERVE": "1"}, {}, "14.2b"),
-    ({}, {"serve": "1"}, "14.2b"),
-    ({"MINIPS_AUTOSCALE": "1"}, {}, "14.2b"),
     ({"MINIPS_HIER": "group=2,agg=mesh"}, {}, "item 15"),
     ({}, {"hier": "group=1,agg=mesh"}, "item 15"),
 ])
@@ -446,16 +440,6 @@ def test_mesh_plane_keeps_its_refusal(monkeypatch):
             sp.ShardedPSTrainer({}, bus, 1)
     finally:
         bus.close()
-
-
-@pytest.mark.parametrize("flags", [["--join-at", "3"], ["--drain-at", "5"],
-                                   ["--coord-plan-at", "4"],
-                                   ["--storm-until", "9"]])
-def test_example_refuses_membership_and_storm_flags(flags):
-    from minips_tpu_torch.apps import sharded_ps_example
-
-    with pytest.raises(NotImplementedError, match="14.2b"):
-        sharded_ps_example.main(["--device", "cpu"] + flags)
 
 
 # ------------------------------------------------------ launched jobs
