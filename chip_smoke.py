@@ -214,7 +214,8 @@ raises on failure:
 28. the multi-process parameter server (``train/sharded_ps.py``): jobs
     of 2 processes launched by ``launch.run_local_job``, sharing the
     card, each rank printing its done line. 28a: ``wide_deep_example
-    --exec multiproc`` at its defaults (BSP), then SSP s = 4 with rank 1
+    --exec multiproc`` at its defaults but 100 steps (BSP), then SSP s = 4
+    with rank 1
     25 ms slower a step: no frame dropped, falling loss, AUC above 0.65,
     skew at most 1 (BSP) and 5 (SSP, with gate waits on rank 0),
     fingerprints within 1e-4, each rank holding half the tables' bytes;
@@ -222,8 +223,9 @@ raises on failure:
     pushed a step. 28b: 3 steps of the BSP job on the card and on CPU
     ranks (``MINIPS_FORCE_CPU``), the two jobs side by side, both with a
     200 ms tax on every frame between the ranks so that no push beats a
-    first pull: each rank's first loss within 1e-4. 28c: ``mf_example`` (ASP) on phase 13's
-    ``ratings.csv`` and ``word2vec_example`` under SSP s = 2 at B 128,
+    first pull: each rank's first loss within 1e-4. 28c: ``mf_example`` (ASP,
+    150 steps) on phase 13's ``ratings.csv`` and ``word2vec_example``
+    under SSP s = 2 at B 128 (100 steps),
     with the same contracts and MF's RMSE. 28d: ``sharded_ps_example``'s
     sparse LR under SSP: rank 1 killed at step 10, rank 0 exits 42 with
     the ``peer_failure`` event, and a relaunch resumes from the newest
@@ -249,6 +251,26 @@ raises on failure:
     28a's BSP Wide&Deep job with the rebalancer, the serving plane and
     elastic membership armed and idle, its samples/s beside 28a's.
     Every rank runs on ``cuda:0``. No kernel of K1-K4 lies on this path.
+30. the in-mesh collective data plane (``train/mesh_plane.py``) in this
+    process. 30a: ``sharded_ps_bench.main(["--plane", "mesh", ...])``
+    with 3 logical ranks on ``[cuda:0] * 3`` at the bench's defaults
+    (2^16 rows x 8, B 4096, 60 steps, sparse path, ASP) for sgd, adagrad
+    and adam at float32 and adagrad at blk8, and adam at 2^21 rows x 16
+    with the sparse deposit: rows/s per rank, waves, collective bytes per
+    row moved, the wave's and gate's p50/p99, the host time of the
+    device-clock admission, the deposit stage's and the card's peaks;
+    the device idle share over 10 waves (``torch.profiler``); the card's
+    states against the CPU port's on one seeded single-threaded schedule
+    (bitwise at sgd/float32, else 1e-6); ``--mesh-bitwise-drill`` (the
+    mesh against the port's zmq wire) bitwise. 30b: ``MeshAggregator``'s
+    device tier on ``[cuda:0] * 2`` (float32, blk8) against the CPU port's
+    (1e-6) and the host kernel (rows plus residual, 1e-4);
+    ``--hier-bitwise-drill``; the push tree's ``agg=mesh`` in the
+    lockstep (bitwise the flat wire) and in 3 launched
+    ``sharded_ps_example`` trainers, on the one-device tier with no
+    fallback. 30c: the same bench on the host wire, 2 launched processes
+    with ``--compute jit`` on the card, beside 30a's rates. No kernel of
+    K1-K4 lies on this path.
 
 Before it prints its result, and on every way out, the script stops and
 reaps every process it started that still runs: the launcher's fork
@@ -261,7 +283,10 @@ rows per card and at 65,536 in all, Wide&Deep spmd and threaded (rank 0
 driving N workers) and the ``lr_example`` resume, with samples/s in all
 and per card beside one card's in the same call, and K1's launches on
 every rank; then phase 28a's BSP job as N launched processes, one card
-each, beside 2 processes sharing card 0, samples/s in all.
+each, beside 2 processes sharing card 0, samples/s in all; then phase
+30's plane with N ranks on the N cards (``torch.cuda.nccl``), sgd and
+adam at the bench's defaults, its states and the aggregator's device tier
+against the same ranks on card 0 within 1e-5.
 
 The last two lines are a JSON object with every kernel's numbers (its
 launches on each path beside them) and then ``{"ok": true, "device":
@@ -460,6 +485,10 @@ CP_SPAWN_TIMEOUT = 300.0
 # staleness, the slow rank and its extra host time a step
 MP_PROCS = 2
 MP_SSP, MP_SLOW_RANK, MP_SLOW_MS = 4, 1, 25.0
+# steps of the Wide&Deep flagship (28a, 29c, --ranks N) and of 28c's MF
+# and word2vec jobs: half the apps' defaults (200, 300, 200), to leave the
+# script's time for phase 30
+MP_ITERS, MP_MF_ITERS, MP_W2V_ITERS = 100, 150, 100
 MP_JOB_TIMEOUT_S = 300.0
 # 28b: |loss_first(card) - loss_first(CPU)| per rank. The first step's
 # rows are the seeded initial tables in both runs; the deep tower's bf16
@@ -520,6 +549,34 @@ CL_ENV = {"MINIPS_ELASTIC": "live=0-2",
 IDLE_ENV = {"MINIPS_REBALANCE": "min_heat=1e18",
             "MINIPS_SERVE": "replicas=1,min_heat=1e9",
             "MINIPS_ELASTIC": "1"}
+# phase 30: the in-mesh collective data plane (train/mesh_plane.py) in this
+# process. 30a: MESH_RANKS logical ranks on [cuda:0] * MESH_RANKS through
+# ``sharded_ps_bench --plane mesh`` at the bench's defaults (2^16 rows x 8,
+# B 4096, 60 steps after 10 warm-up, sparse path, ASP), one run per
+# (updater, comm) of MESH_RUNS, then one at an embedding table's size:
+# 2^21 rows x 16 with adam and the sparse deposit, MESH_BIG_ITERS steps
+MESH_RANKS = 3
+MESH_RUNS = (("sgd", "float32"), ("adagrad", "float32"),
+             ("adam", "float32"), ("adagrad", "blk8"))
+MESH_BIG_ROWS, MESH_BIG_DIM = 1 << 21, 16
+MESH_BIG_ITERS, MESH_BIG_WARMUP = 30, 5
+MESH_PROFILED_WAVES = 10
+# the card's shard states against the CPU port's on one seeded
+# single-threaded schedule (MESH_CMP_STEPS BSP steps at the bench's shape):
+# bitwise at sgd/float32, else within MESH_STATE_TOL; on N distinct cards
+# NCCL's ring sums in its own order, so N cards against one within
+# MESH_CARDS_TOL
+MESH_CMP_STEPS = 6
+MESH_STATE_TOL = 1e-6
+MESH_CARDS_TOL = 1e-5
+# 30b: MeshAggregator's device tier on [cuda:0] * 2, MESH_AGG_REDUCES
+# reduces of 2 slots x MESH_AGG_KEYS keys at the bench's table shape; the
+# push tree's agg=mesh in MESH_TREE_PROCS launched sharded_ps_example
+# trainers (tests/test_hybrid_plane.py's whole-host drill, no kill)
+MESH_AGG_REDUCES, MESH_AGG_KEYS = 4, 4096
+MESH_TREE_PROCS = 3
+MESH_TREE_FLAGS = ["--model", "sparse", "--mode", "ssp", "--staleness", "2",
+                   "--iters", "30", "--batch", "64"]
 
 
 def check(cond: bool, msg: str) -> None:
@@ -2701,7 +2758,7 @@ def multiproc_phase(card: str, ratings: str) -> dict:
     servers are numpy on the host and each rank's step is autograd on
     ``cuda:0``. Returns the numbers printed."""
     out = {}
-    wd = ["--exec", "multiproc"]
+    wd = ["--exec", "multiproc", "--num_iters", str(MP_ITERS)]
     b = 1024  # the apps' default batch
     # ---- 28a: Wide&Deep at BSP, then SSP with a straggler
     t0 = time.perf_counter()
@@ -2726,7 +2783,7 @@ def multiproc_phase(card: str, ratings: str) -> dict:
     # ---- 28b: the card against the CPU, taxed links
     t0 = time.perf_counter()
     tax = {"MINIPS_CHAOS": f"1:slow#0-1={MP_TAX_MS}"}
-    short = wd + ["--num_iters", str(MP_TAX_ITERS)]
+    short = ["--exec", "multiproc", "--num_iters", str(MP_TAX_ITERS)]
     on_card, on_cpu = side_by_side(
         lambda: mp_job(MP_PROCS, "wide_deep_example", short, env=tax),
         lambda: mp_job(MP_PROCS, "wide_deep_example", short,
@@ -2747,12 +2804,14 @@ def multiproc_phase(card: str, ratings: str) -> dict:
     # ---- 28c: MF (ASP) on phase 13's ratings.csv, word2vec under SSP
     t0 = time.perf_counter()
     mf = mp_job(MP_PROCS, "mf_example", ["--exec", "multiproc",
+                                         "--num_iters", str(MP_MF_ITERS),
                                          "--data_file", ratings])
     mp_contracts("phase 28c MF", mf, auc=False)
     check(all(r["rmse"] is not None and math.isfinite(r["rmse"])
               for r in mf), f"phase 28c MF: RMSE {[r['rmse'] for r in mf]}")
     w2v = mp_job(MP_PROCS, "word2vec_example", [
-        "--exec", "multiproc", "--consistency", "ssp", "--staleness",
+        "--exec", "multiproc", "--num_iters", str(MP_W2V_ITERS),
+        "--consistency", "ssp", "--staleness",
         str(MP_W2V_SSP), "--batch_size", str(MP_W2V_BATCH)])
     mp_contracts("phase 28c word2vec", w2v, skew=MP_W2V_SSP + 1, auc=False)
     out["28c"] = {"mf": dict(mp_rates(mf, b), rmse=[r["rmse"] for r in mf],
@@ -2967,7 +3026,8 @@ def placement_phase(card: str, wd_bsp: dict) -> dict:
           + json.dumps(out["29b"]), flush=True)
     # ---- 29c: the flagship with the layers armed and idle
     t0 = time.perf_counter()
-    armed = mp_job(MP_PROCS, "wide_deep_example", ["--exec", "multiproc"],
+    armed = mp_job(MP_PROCS, "wide_deep_example",
+                   ["--exec", "multiproc", "--num_iters", str(MP_ITERS)],
                    env=IDLE_ENV)
     for r in armed:
         check(r["device"] == "cuda:0" and r["rebalance"] is not None
@@ -3002,12 +3062,372 @@ def placement_phase(card: str, wd_bsp: dict) -> dict:
     return out
 
 
+def mesh_bench(torch, argv: list) -> dict:
+    """One ``sharded_ps_bench.main(argv)`` run of the mesh plane in this
+    process: its done line, and beside it the plane's wave and gate
+    histograms, the host time of each device-clock admission
+    (``MeshPlane._device_min``, a sync of the card), the deposit stage's
+    peak host bytes and the card's peak allocation above what the process
+    held when the run began."""
+    from minips_tpu_torch.apps import sharded_ps_bench as bench
+    from minips_tpu_torch.train import mesh_plane as mp
+
+    planes, admits = [], []
+    real_stats, real_min = mp.MeshPlane.stats, mp.MeshPlane._device_min
+
+    def stats(self):
+        planes.append(self)
+        return real_stats(self)
+
+    def device_min(self):
+        t = time.perf_counter()
+        v = real_min(self)
+        admits.append(time.perf_counter() - t)
+        return v
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    mp.MeshPlane.stats, mp.MeshPlane._device_min = stats, device_min
+    try:
+        rc, done = bench_line(bench, argv)
+    finally:
+        mp.MeshPlane.stats, mp.MeshPlane._device_min = real_stats, real_min
+    check(rc == 0 and done["event"] == "done"
+          and done["jax_backend"] == "cuda", f"phase 30 {argv}: rc {rc}, "
+          f"{done}")
+    st = real_stats(planes[-1])
+    admits.sort()
+    return {"rows_per_sec_ranks": done["rows_per_sec_ranks"],
+            "rows_per_sec": done["rows_per_sec"],
+            "waves": done["waves"], "wall_s": done["wall_s"],
+            "collective_bytes_per_row_moved":
+                done["collective_bytes_per_row_moved"],
+            "wave_ms": st["hist"]["wave_ms"],
+            "gate_ms": st["hist"]["gate_ms"],
+            "admissions": len(admits),
+            "admission_us_p50": (round(1e6 * admits[len(admits) // 2], 1)
+                                 if admits else None),
+            "admission_us_p99": (round(1e6 * admits[int(len(admits) * 0.99)],
+                                       1) if admits else None),
+            "peak_deposit_bytes": done["peak_deposit_bytes"],
+            "peak_gb_above_start": round(
+                (torch.cuda.max_memory_allocated() - base) / 1e9, 4)}
+
+
+def mesh_schedule(devices, updater: str, comm: str, deposit: str,
+                  rows: int = 1 << 16, dim: int = 8, batch: int = 4096,
+                  steps: int = MESH_CMP_STEPS) -> dict:
+    """One seeded single-threaded BSP schedule of the mesh plane on
+    ``devices`` (every rank pulls, pushes with duplicate keys, then
+    ticks); the finalized state over the padded table, on the host."""
+    import threading
+
+    import numpy as np
+
+    from minips_tpu_torch.train import mesh_plane as mp
+
+    n = len(devices)
+    plane = mp.MeshPlane(n, staleness=0, comm=comm, deposit=deposit,
+                         devices=devices)
+    t = plane.add_table("t", rows, dim, updater=updater, lr=0.05)
+    rng = np.random.default_rng(30)
+    t.load_dense(rng.normal(size=(rows, dim)).astype(np.float32))
+    for _ in range(steps):
+        for r in range(n):
+            keys = rng.integers(0, rows, size=batch)
+            t.pull(r, keys)
+            t.push(r, keys, rng.normal(size=(batch, dim)).astype(
+                np.float32))
+        for r in range(n):
+            plane.tick(r, wait=False)
+    ths = [threading.Thread(target=plane.finalize, args=(r,))
+           for r in range(n)]
+    for th in ths:
+        th.start()
+    for th in ths:
+        th.join(timeout=120.0)
+    out = {k: np.asarray(getattr(t, k).cpu()) for k in
+           ("_w", "_acc", "_m", "_v", "_steps") if getattr(t, k) is not None}
+    out["mirror"] = t.pull_all(0).copy()
+    return out
+
+
+def state_gap(a: dict, b: dict) -> tuple:
+    """(bitwise equal, max abs difference) over every state of two
+    ``mesh_schedule`` results."""
+    import numpy as np
+
+    same = all(np.array_equal(a[k], b[k]) for k in a)
+    gap = max(float(np.abs(a[k].astype(np.float64) - b[k]).max())
+              for k in a)
+    return same, gap
+
+
+def agg_rounds(devices, comm: str, rows: int = 1 << 16, dim: int = 8):
+    """MESH_AGG_REDUCES seeded reduces of ``MeshAggregator`` on
+    ``devices`` (2 slots); each reduce's (keys, rows, residual keys,
+    residual rows), the staged keys and rows, and the stats."""
+    import numpy as np
+
+    from minips_tpu_torch.train import mesh_plane as mp
+
+    agg = mp.MeshAggregator(rows, dim, slots=len(devices), comm=comm,
+                            devices=devices)
+    rng = np.random.default_rng(31)
+    outs = []
+    for _ in range(MESH_AGG_REDUCES):
+        staged = []
+        for s in range(len(devices)):
+            k = rng.integers(0, rows, size=MESH_AGG_KEYS)
+            g = rng.normal(size=(MESH_AGG_KEYS, dim)).astype(np.float32)
+            agg.deposit(s, k, g)
+            staged.append((k, g))
+        outs.append((agg.reduce(), staged))
+    return outs, agg.stats()
+
+
+def agg_gaps(card, other) -> dict:
+    """One ``agg_rounds`` run against another on the same deposits
+    (bitwise, max abs), and the first against THE host kernel
+    (``sum_duplicate_keys`` over every staged row, f64 then f32 once):
+    rows + residual is what the slots deposited, whatever the tier
+    shipped."""
+    import numpy as np
+
+    from minips_tpu_torch.train.sharded_ps import sum_duplicate_keys
+
+    gap = host = 0.0
+    same = True
+    for ((k, rows, rk, rr), staged), ((k2, rows2, rk2, rr2), _) in zip(
+            card, other):
+        same &= (np.array_equal(k, k2) and np.array_equal(rows, rows2)
+                 and np.array_equal(rk, rk2) and np.array_equal(rr, rr2))
+        gap = max(gap, float(np.abs(rows - rows2).max()))
+        hk, hg, _ = sum_duplicate_keys(
+            np.concatenate([s[0] for s in staged]),
+            np.concatenate([s[1] for s in staged]), rows.shape[1])
+        order = np.argsort(hk, kind="stable")
+        hk, hg = hk[order], hg[order]
+        check(np.array_equal(hk, k), "phase 30b: the aggregate's keys")
+        full = rows.astype(np.float64)
+        if rk.size:
+            full[np.searchsorted(k, rk)] += rr
+        host = max(host, float(np.abs(full - hg).max()))
+    return {"bitwise": bool(same), "max_abs": gap,
+            "max_abs_rows_plus_residual_vs_host_kernel": host}
+
+
+def mesh_phase(torch, card: str) -> dict:
+    """Phase 30: the in-mesh collective data plane in this process. 30a
+    the plane on [cuda:0] * MESH_RANKS through ``sharded_ps_bench --plane
+    mesh``, its device idle share over MESH_PROFILED_WAVES waves, the
+    card's states against the CPU port's, ``--mesh-bitwise-drill``; 30b
+    ``MeshAggregator``'s device tier on the card against the CPU port's
+    and the host kernel, ``--hier-bitwise-drill``, and the push tree's
+    ``agg=mesh`` on one card (the one-device tier); 30c two launched
+    ``sharded_ps_bench`` processes with ``--compute jit`` on the card.
+    No kernel of K1-K4 lies on this path (the wave is PyTorch's
+    ``index_add_``, elementwise kernels and the copies). Returns the
+    numbers printed."""
+    import numpy as np
+
+    from minips_tpu_torch.apps import sharded_ps_bench as bench
+    from minips_tpu_torch.train import mesh_plane as mp
+
+    tl = bench._lockstep()  # tests/torch_lockstep.py
+    out = {}
+    dev = torch.device("cuda", 0)
+    one = ["--plane", "mesh", "--mesh-ranks", str(MESH_RANKS),
+           "--mesh-devices", "cuda:0"]
+    # ---- 30a: the plane at the bench's defaults, and at a table's size
+    t0 = time.perf_counter()
+    runs = {f"{u}_{c}": mesh_bench(torch, one + ["--updater", u,
+                                                 "--mesh-comm", c])
+            for u, c in MESH_RUNS}
+    runs["adam_float32_2^21x16_sparse"] = mesh_bench(torch, one + [
+        "--rows", str(MESH_BIG_ROWS), "--dim", str(MESH_BIG_DIM),
+        "--updater", "adam", "--mesh-deposit", "sparse",
+        "--iters", str(MESH_BIG_ITERS), "--warmup", str(MESH_BIG_WARMUP)])
+    # the device's idle share over MESH_PROFILED_WAVES waves: every rank
+    # pushes (the last push fires the wave), then every rank ticks
+    plane = mp.MeshPlane(MESH_RANKS, staleness=0, devices=[dev] * MESH_RANKS)
+    tab = plane.add_table("b", 1 << 16, 8, updater="adagrad")
+    rng = np.random.default_rng(0)
+    pushes = [(rng.integers(0, 1 << 16, size=4096),
+               rng.normal(size=(4096, 8)).astype(np.float32))
+              for _ in range(MESH_RANKS)]
+
+    def waves(k):
+        for _ in range(k):
+            for r, (keys, g) in enumerate(pushes):
+                tab.push(r, keys, g)
+            for r in range(MESH_RANKS):
+                plane.tick(r, wait=False)
+        torch.cuda.synchronize()
+
+    waves(3)
+    t1 = time.perf_counter()
+    waves(MESH_PROFILED_WAVES)
+    wave_ms = 1e3 * (time.perf_counter() - t1) / MESH_PROFILED_WAVES
+    prof = device_time(torch, lambda: waves(MESH_PROFILED_WAVES),
+                       MESH_PROFILED_WAVES, wave_ms)
+    out["30a"] = {"runs": runs, "profiled_wave_ms": round(wave_ms, 4),
+                  "device_busy_ms_per_wave": prof["device_busy_ms"],
+                  "device_idle_share": prof["device_idle_share"],
+                  "device_ops_per_wave": prof["device_ops"],
+                  "top": prof["top"][:5]}
+    # the card against the CPU port, one seeded single-threaded schedule
+    cmp = {}
+    for upd, comm, dep in (("sgd", "float32", "dense"),
+                           ("adagrad", "blk8", "dense"),
+                           ("adam", "float32", "sparse")):
+        a = mesh_schedule([dev] * MESH_RANKS, upd, comm, dep)
+        b = mesh_schedule(["cpu"] * MESH_RANKS, upd, comm, dep)
+        same, gap = state_gap(a, b)
+        check(same if (upd, comm) == ("sgd", "float32")
+              else gap <= MESH_STATE_TOL, f"phase 30a: {upd}/{comm}/{dep} "
+              f"card against CPU: bitwise {same}, max abs {gap}")
+        cmp[f"{upd}_{comm}_{dep}"] = {"bitwise": same, "max_abs": gap}
+    out["30a"]["card_vs_cpu"] = cmp
+    _, drill = bench_line(bench, ["--mesh-bitwise-drill", "--mesh-devices",
+                                  "cuda:0"])
+    check(drill["bitwise_equal"] is True and drill["rows_checked"] == 64,
+          f"phase 30a: mesh bitwise drill {drill}")
+    out["30a"]["mesh_bitwise_drill"] = drill
+    out["30a"]["s"] = round(time.perf_counter() - t0, 1)
+    print(f"mesh plane, {MESH_RANKS} ranks on {card} cuda:0 (phase 30a; "
+          "per run rows/s per rank, waves, collective B per row moved, "
+          "wave and gate ms, the device-clock admission's host us, peak "
+          "deposit bytes and card GB; the profiled waves' idle share; the "
+          "card's states against the CPU port's): "
+          + json.dumps(out["30a"]), flush=True)
+    # ---- 30b: the push tree's device reduce
+    t0 = time.perf_counter()
+    aggs = {}
+    for comm in ("float32", "blk8"):
+        card_run, st = agg_rounds([dev] * 2, comm)
+        cpu_run, st_cpu = agg_rounds(["cpu"] * 2, comm)
+        g = agg_gaps(card_run, cpu_run)
+        check(st["backend"] == "mesh" and st == st_cpu
+              and g["max_abs"] <= MESH_STATE_TOL
+              and g["max_abs_rows_plus_residual_vs_host_kernel"] <= 1e-4,
+              f"phase 30b: aggregator {comm}: {st} / {st_cpu}, {g}")
+        aggs[comm] = dict(g, stats=st)
+    _, hier = bench_line(bench, ["--hier-bitwise-drill"])
+    check(hier["bitwise_equal"] is True, f"phase 30b: hier drill {hier}")
+    flat, _ = tl.run_hier_lockstep("")
+    st: dict = {}
+    tree, lost = tl.run_hier_lockstep("group=2,agg=mesh", stats=st)
+    backend = mp.MeshAggregator(96, 2, slots=2).stats()["backend"]
+    check(all(np.array_equal(a, b) for a, b in zip(flat, tree))
+          and lost == [0, 0, 0] and st["mesh_reduces"] > 0
+          and st["mesh_agg_fallbacks"] == 0
+          and backend == "host-degenerate", f"phase 30b: agg=mesh on one "
+          f"card: {st}, lost {lost}, backend {backend}")
+    # a trainer with agg=mesh: MESH_TREE_PROCS launched processes on the
+    # card, host groups {0, 1} | {2}; rank 0 leads and reduces on the
+    # one-device tier
+    job = mp_job(MESH_TREE_PROCS, "sharded_ps_example", MESH_TREE_FLAGS,
+                 env={"MINIPS_HIER": "group=2,agg=mesh"})
+    hy = [r["hybrid"] for r in job]
+    check(all(r["event"] == "done" and r["frames_dropped"] == 0
+              for r in job) and all(h["backend_mesh"] == 0
+                                    and h["mesh_agg_fallbacks"] == 0
+                                    for h in hy)
+          and hy[0]["mesh_reduces"] > 0
+          and len({r["param_sum"] for r in job}) == 1,
+          f"phase 30b: agg=mesh trainers: {hy}")
+    out["30b"] = {"aggregator": aggs, "hier_bitwise_drill": hier,
+                  "agg_mesh_lockstep": dict(st, backend=backend,
+                                            bitwise_equal_flat=True),
+                  "agg_mesh_trainers": hy,
+                  "s": round(time.perf_counter() - t0, 1)}
+    print(f"the push tree's device reduce on {card} (phase 30b; the "
+          "aggregator's device tier against the CPU port's and the host "
+          "kernel, the hier drill, agg=mesh in the lockstep and in "
+          f"{MESH_TREE_PROCS} launched trainers): "
+          + json.dumps(out["30b"]), flush=True)
+    # ---- 30c: the wire bench, two launched processes on the card
+    t0 = time.perf_counter()
+    wire = mp_job(MP_PROCS, "sharded_ps_bench", ["--compute", "jit"])
+    for r in wire:
+        check(r["event"] == "done" and r["compute"] == "jit(cuda)"
+              and r["frames_dropped"] == 0, f"phase 30c: {r}")
+    out["30c"] = {"rows_per_sec": [r["rows_per_sec"] for r in wire],
+                  "wire_bytes_per_row_moved": [
+                      r["wire_bytes_per_row_moved"] for r in wire],
+                  "mesh_30a_adagrad_float32_rows_per_sec":
+                      runs["adagrad_float32"]["rows_per_sec"],
+                  "mesh_30a_collective_bytes_per_row_moved":
+                      runs["adagrad_float32"][
+                          "collective_bytes_per_row_moved"],
+                  "s": round(time.perf_counter() - t0, 1)}
+    print(f"the wire bench, {MP_PROCS} launched processes with --compute "
+          f"jit on {card} (phase 30c), beside 30a's adagrad/float32: "
+          + json.dumps(out["30c"]), flush=True)
+    print("K1-K4 on phase 30's path: none launched (a wave is PyTorch's "
+          "index_add_, elementwise kernels and copies; the pulls read the "
+          "host mirror)", flush=True)
+    return out
+
+
+def bench_line(bench, argv: list) -> tuple:
+    """``sharded_ps_bench.main(argv)`` in this process: its exit code and
+    the last JSON line it printed (a done line, or a drill's stamp)."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = bench.main(argv)
+    return rc, json.loads([ln for ln in buf.getvalue().splitlines()
+                           if ln.startswith("{")][-1])
+
+
+def mesh_cards(torch, n: int, card: str) -> dict:
+    """``--ranks n``'s phase 30: the mesh plane with n ranks on n cards
+    (``torch.cuda.nccl``), float32 sgd and adam at the bench's defaults,
+    and its states and ``MeshAggregator``'s device tier against the same
+    ranks on card 0 alone, within MESH_CARDS_TOL."""
+    t0 = time.perf_counter()
+    cards = [torch.device("cuda", i) for i in range(n)]
+    runs = {u: mesh_bench(torch, ["--plane", "mesh", "--mesh-ranks", str(n),
+                                  "--updater", u])
+            for u in ("sgd", "adam")}
+    gaps = {}
+    for upd, dep in (("sgd", "dense"), ("adam", "sparse")):
+        same, gap = state_gap(mesh_schedule(cards, upd, "float32", dep),
+                              mesh_schedule([cards[0]] * n, upd,
+                                            "float32", dep))
+        check(gap <= MESH_CARDS_TOL, f"phase 30 on {n} cards: {upd} "
+              f"states against one card: max abs {gap}")
+        gaps[f"{upd}_{dep}"] = {"bitwise": same, "max_abs": gap}
+    for comm in ("float32", "blk8"):
+        spread, st = agg_rounds(cards, comm)
+        one, _ = agg_rounds([cards[0]] * n, comm)
+        g = agg_gaps(spread, one)
+        check(st["backend"] == "mesh" and st["slots"] == n
+              and g["max_abs"] <= MESH_CARDS_TOL
+              and g["max_abs_rows_plus_residual_vs_host_kernel"] <= 1e-4,
+              f"phase 30 on {n} cards: aggregator {comm}: {st}, {g}")
+        gaps[f"aggregator_{comm}"] = g
+    out = {"runs": runs, "against_one_card": gaps,
+           "s": round(time.perf_counter() - t0, 1)}
+    print(f"mesh plane, {n} ranks on {n} cards ({card}) through "
+          "torch.cuda.nccl "
+          "(phase 30; rows/s per rank and the rest as 30a; states and the "
+          "aggregator against the same ranks on card 0): "
+          + json.dumps(out), flush=True)
+    return out
+
+
 def multiproc_cards(n: int) -> dict:
     """``--ranks n``'s phase 28a: Wide&Deep's BSP job as n launched
     processes, one card each, beside MP_PROCS processes that share card 0,
     in the same call; the contracts on both, samples/s in all."""
     t0 = time.perf_counter()
-    wd = ["--exec", "multiproc"]
+    wd = ["--exec", "multiproc", "--num_iters", str(MP_ITERS)]
     shared = mp_job(MP_PROCS, "wide_deep_example", wd,
                     env={"CUDA_VISIBLE_DEVICES": "0"})
     spread = mp_job(n, "wide_deep_example", wd)
@@ -3093,6 +3513,7 @@ def multi_card_main(torch, n: int) -> int:
     print(f"K1 launches on each of the {n} ranks, by path: " + json.dumps(
         {k: [r["k1"][k] for r in appg] for k in head["k1"]}), flush=True)
     multiproc_cards(n)
+    mesh_cards(torch, n, " | ".join(sorted(set(cards[:n]))))
     print("processes still running at the end, killed: "
           + json.dumps(stop_children()), flush=True)
     print(cards[0])
@@ -4133,8 +4554,14 @@ def main() -> int:
     t0 = time.perf_counter()
     placement_phase(card, mp["28a"]["bsp"])
     phase_s["29"] = time.perf_counter() - t0
+    # --------- 30. the in-mesh collective data plane on the card
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    mesh_phase(torch, card)
+    phase_s["30"] = time.perf_counter() - t0
     print("LM decoding (phase 19): " + json.dumps(decoding), flush=True)
-    print("seconds taken by phases 17-29: " + json.dumps(phase_s),
+    print("seconds taken by phases 17-30: " + json.dumps(phase_s),
           flush=True)
 
     kernels[0]["launches_by_path"] = dict(

@@ -249,9 +249,13 @@ def _check(comm: str) -> None:
         raise ValueError(f"comm must be one of {VALID}, got {comm!r}")
 
 
-def _quantize_blocks(x: torch.Tensor, block: int = BLOCK):
+def _quantize_blocks(x: torch.Tensor, block: int = BLOCK, *,
+                     reciprocal: bool = False):
     """[..., L] f32 -> (int8 [..., nb, block], f32 scales [..., nb]).
-    L is zero-padded up to a block multiple."""
+    L is zero-padded up to a block multiple. ``reciprocal`` takes the
+    scale as absmax times the f32 reciprocal of 127, as XLA computes it
+    inside a compiled program (the JAX mesh plane's waves); the default
+    is the true division of JAX's eager op."""
     L = x.shape[-1]
     nb = -(-L // block)
     pad = nb * block - L
@@ -261,8 +265,13 @@ def _quantize_blocks(x: torch.Tensor, block: int = BLOCK):
     # 127 as a tensor on x's device: PyTorch's CUDA division by a Python
     # scalar multiplies by its reciprocal, which rounds some scales
     # differently from JAX's (and the CPU's) true division
-    div = torch.full((), 127.0, dtype=torch.float32, device=x.device)
-    scale = torch.clamp(torch.amax(torch.abs(xb), dim=-1), min=1e-30) / div
+    amax = torch.clamp(torch.amax(torch.abs(xb), dim=-1), min=1e-30)
+    if reciprocal:
+        scale = amax * torch.full((), np.float32(1) / np.float32(127),
+                                  dtype=torch.float32, device=x.device)
+    else:
+        scale = amax / torch.full((), 127.0, dtype=torch.float32,
+                                  device=x.device)
     q = torch.round(xb / scale[..., None]).to(torch.int8)
     return q, scale
 

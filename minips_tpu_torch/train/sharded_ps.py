@@ -1,13 +1,9 @@
 """Key-range-sharded multi-process parameter server — a copy of
 ``minips_tpu/train/sharded_ps.py``, which imports no JAX: the servers are
 numpy on the host, and the apps run each process's model step in PyTorch
-on the process's device (``apps/*_example.py --exec multiproc``).
-
-Not ported yet, and refused with ``NotImplementedError`` where the trainer
-arms it, before any traffic: the hierarchical push tree's mesh aggregator
-(``MINIPS_HIER`` ``agg=mesh``, which waits for ``train/mesh_plane.py``'s
-NCCL tier, ROADMAP.md queue 1 item 15). Its handler below stays as
-copied, unreachable until that tier lands.
+on the process's device (``apps/*_example.py --exec multiproc``). The
+hierarchical push tree's device reduce (``MINIPS_HIER`` ``agg=mesh``) is
+``train/mesh_plane.py``'s ``MeshAggregator`` on the leader's devices.
 
 This is the reference's *actual* server topology (SURVEY.md §1 L2, §2
 SimpleRangeManager/ServerThread/KVTable rows): every process hosts a server
@@ -5591,14 +5587,6 @@ class ShardedPSTrainer:
         from minips_tpu_torch.balance import hier as _hr
 
         self.hier_cfg = _hr.maybe_config(hier)
-        if self.hier_cfg is not None and self.hier_cfg.agg == "mesh":
-            # refused here, before any traffic: the leader's lazy
-            # aggregator (_hier_mesh_agg) would catch the missing
-            # MeshAggregator and fall back to the host reduce unseen
-            raise NotImplementedError(
-                "MINIPS_HIER agg=mesh: the mesh aggregator "
-                "(train/mesh_plane.py MeshAggregator) is not ported yet "
-                "(ROADMAP.md queue 1 item 15); use agg=0 or agg=1")
         if self.hier_cfg is not None:
             if self.hier_cfg.agg and self.hier_cfg.group > 1 \
                     and self.rebalancer is not None \

@@ -113,11 +113,13 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "        'minips_tpu_torch.balance.membership',\n"
         "        'minips_tpu_torch.balance.autoscaler',\n"
         "        'minips_tpu_torch.data.blocks',\n"
-        "        'minips_tpu_torch.apps.sharded_ps_example'}\n"
+        "        'minips_tpu_torch.apps.sharded_ps_example',\n"
+        "        'minips_tpu_torch.apps.sharded_ps_bench',\n"
+        "        'minips_tpu_torch.apps.traffic_driver'}\n"
         "print(len(names), sorted(need - set(names)), bad)\n")
     assert r.returncode == 0, r.stderr
     count, rest = r.stdout.split(" ", 1)
-    assert int(count) >= 102 and rest.strip() == "[] []", r.stdout
+    assert int(count) >= 104 and rest.strip() == "[] []", r.stdout
 
 
 def test_importing_the_build_module_runs_nothing():
@@ -165,6 +167,13 @@ def test_importing_the_build_module_runs_nothing():
     "from minips_tpu_torch.apps.lm_example import main; main()",
     "import torch; from minips_tpu_torch.models.transformer import "
     "init_moe_lm; init_moe_lm(torch.Generator())",
+    "from minips_tpu_torch.train.mesh_plane import MeshPlane; MeshPlane(2)",
+    "from minips_tpu_torch.train.mesh_plane import MeshAggregator; "
+    "MeshAggregator(16, 2, slots=2)",
+    "from minips_tpu_torch.apps.sharded_ps_bench import main; "
+    "main(['--plane', 'mesh'])",
+    "from minips_tpu_torch.apps.sharded_ps_bench import main; "
+    "main(['--compute', 'jit', '--iters', '2', '--warmup', '1'])",
 ])
 def test_entry_points_default_to_cuda_and_raise_without_it(entry):
     _no_cuda()
@@ -183,3 +192,19 @@ def test_chip_smoke_fails_without_cuda(tmp_path):
     r = subprocess.run([sys.executable, "chip_smoke.py"], cwd=tmp_path,
                        capture_output=True, text=True, timeout=120)
     assert r.returncode != 0 and '"ok"' not in r.stdout
+
+
+def test_bench_drills_run_without_jax():
+    # the bench's bitwise drills run the lockstep copies in
+    # tests/torch_lockstep.py, which import nothing of the JAX package
+    r = _run(
+        "import os, sys\n"
+        "os.environ['MINIPS_FORCE_CPU'] = '1'\n"
+        "from minips_tpu_torch.apps.sharded_ps_bench import main\n"
+        "rc = [main([f]) for f in ('--mesh-bitwise-drill',\n"
+        "      '--hybrid-degenerate-drill')]\n"
+        "bad = sorted(k for k in sys.modules\n"
+        "             if k.split('.')[0] in ('jax', 'jaxlib', 'minips_tpu'))\n"
+        "print('RESULT', rc, bad)\n")
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.splitlines()[-1] == "RESULT [0, 0] []", r.stdout

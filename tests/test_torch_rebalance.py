@@ -15,8 +15,8 @@
   on one loopback mesh) and leave every shard bit for bit as an
   all-reference fleet does.
 
-The slow 3-process zipf drill launches ``apps/sharded_ps_bench``, which
-is not ported yet (ROADMAP.md queue 1 item 15).
+The slow 3-process zipf drill launches the port's
+``apps/sharded_ps_bench`` and stays slow.
 """
 
 from __future__ import annotations
@@ -32,9 +32,7 @@ from tests.torch_ref_drills import (assert_equal_tree,
                                     assert_mixed_equals_reference, fleet,
                                     parse_alike, port_drills)
 
-globals().update(port_drills(
-    "test_rebalance.py",
-    leave=("test_rebalance_3proc_unpermuted_zipf_beats_static",)))
+globals().update(port_drills("test_rebalance.py"))
 
 REF = "test_rebalance.py"
 

@@ -16,8 +16,8 @@
   their own asserts on a mixed fleet: the bound, no stale read, and
   replicas agreeing bitwise after finalize.
 
-The slow 3-process pull storm launches ``apps/sharded_ps_bench``, which
-is not ported yet (ROADMAP.md queue 1 item 15).
+The slow 3-process pull storm launches the port's
+``apps/sharded_ps_bench`` and stays slow.
 """
 
 from __future__ import annotations
@@ -32,9 +32,7 @@ from minips_tpu_torch.serve import plane
 from tests.torch_ref_drills import (assert_mixed_equals_reference, fleet,
                                     parse_alike, port_drills)
 
-globals().update(port_drills(
-    "test_serve.py",
-    leave=("test_pull_storm_3proc_replicas_engage_and_stay_fresh",)))
+globals().update(port_drills("test_serve.py"))
 
 REF = "test_serve.py"
 

@@ -411,9 +411,11 @@ def test_owner_side_admission_parks_and_unparks(kinds):
 ])
 def test_unported_layers_refuse_before_any_traffic(env, kw, match,
                                                    monkeypatch):
-    """Arming a layer that is not ported yet raises NotImplementedError
-    naming its ROADMAP item in the trainer's constructor, before the bus
-    has sent a frame."""
+    """The layer these cases once refused until its ROADMAP item
+    (``match``) was done, the hierarchical push tree's mesh aggregator
+    (``MINIPS_HIER`` ``agg=mesh``), is ported: arming it builds the
+    trainer with the layer armed and still sends no frame before the
+    first step."""
     for k in ("MINIPS_REBALANCE", "MINIPS_ELASTIC", "MINIPS_SERVE",
               "MINIPS_AUTOSCALE", "MINIPS_HIER"):
         monkeypatch.delenv(k, raising=False)
@@ -425,8 +427,9 @@ def test_unported_layers_refuse_before_any_traffic(env, kw, match,
     bus.send = lambda *a, **k: sent.append(a)
     try:
         t = sp.ShardedTable("t", 16, 2, bus, 0, 1)
-        with pytest.raises(NotImplementedError, match=match):
-            sp.ShardedPSTrainer({"t": t}, bus, 1, **kw)
+        tr = sp.ShardedPSTrainer({"t": t}, bus, 1, **kw)
+        assert tr.hier_cfg is not None and tr.hier_cfg.agg == "mesh"
+        assert tr.hybrid_stats()["mesh_agg_fallbacks"] == 0
         assert sent == []
     finally:
         bus.close()

@@ -36,7 +36,14 @@ TESTS = os.path.dirname(os.path.abspath(__file__))
 # a launched port rank runs its step on the CPU with one intra-op thread
 # (its steps are small, and the test run shares the host with other jobs)
 CPU_RANK = {"MINIPS_FORCE_CPU": "1", "OMP_NUM_THREADS": "1"}
-_HELPER = re.compile(r"from tests\.(test_\w+) import (\w+)")
+_HELPER = re.compile(r"from tests\.(test_\w+) import (\w+(?:, *\w+)*)")
+
+
+def _helpers(m, call: str) -> str:
+    """``from tests.test_x import a, b`` as one ``name = call("test_x.py",
+    "name")`` statement per imported name."""
+    return "; ".join(f'{n.strip()} = {call}("{m.group(1)}.py", '
+                     f'"{n.strip()}")' for n in m.group(2).split(","))
 # Waits of the reference drills that a receive thread can satisfy before
 # the state they stand for exists: an owner counts a push's rows before
 # it applies them, so a drill that reads the rows once the count is up
@@ -93,8 +100,8 @@ def _port_ns(ref_file: str) -> dict:
         "from tests.torch_ref_drills import "
         "port_loopback_buses as mk_loopback_buses")
     src = _HELPER.sub(
-        r'from tests.torch_ref_drills import port_helper; '
-        r'\2 = port_helper("\1.py", "\2")', src)
+        lambda m: "from tests.torch_ref_drills import port_helper; "
+        + _helpers(m, "port_helper"), src)
     return _run(src, ref_file, f"tests.port_{ref_file[:-3]}")
 
 
@@ -164,7 +171,7 @@ def fleet(ref_file: str, kinds, *, record=None) -> dict:
     src = _read(ref_file).replace(
         "from tests.conftest import mk_loopback_buses",
         "mk_loopback_buses = _fleet_buses")
-    src = _HELPER.sub(r'\2 = _fleet_helper("\1.py", "\2")', src)
+    src = _HELPER.sub(lambda m: _helpers(m, "_fleet_helper"), src)
     src = _SP_IMPORT.sub(_route_sp_import, src)
     ns = _run(src, ref_file, f"tests.fleet_{ref_file[:-3]}",
               {"_fleet_buses": buses, "_fleet_names": names,
@@ -264,16 +271,60 @@ def membership_outcome(events) -> dict:
     return {"ranks": out, "blocks_restored": restored}
 
 
+# JAX's persistent compilation cache for the JAX jobs beside the port's
+# drills: one directory per test process, and the job signatures
+# already compiled into it
+_JAX_CACHE: dict = {"dir": None, "warm": set()}
+# the untimed warm-up's heartbeat: long enough for any compile
+_WARM_HEARTBEAT = "interval=0.1,timeout=60.0"
+
+
+def _jax_job(n, extra, ck, env, timeout):
+    return jax_launch.run_local_job_raw(
+        n, [sys.executable, "-m", JAX_APP]
+        + [ck if a.endswith("ck") else a for a in extra],
+        base_port=None,
+        env_extra={"MINIPS_FORCE_CPU": "1", "JAX_PLATFORMS": "cpu",
+                   **env},
+        timeout=timeout, kill_on_failure=False)
+
+
+def _warm_jax_cache(n, extra, env, timeout, tmp_path) -> dict:
+    """The env that points a JAX job at a persistent compilation cache
+    holding every program of this job: warmed once per job signature by
+    an untimed run of the same job (no kill, heartbeat timeout 60 s), so
+    that the compared run loads its steps from the cache instead of
+    compiling them inside the drill's heartbeat window."""
+    import tempfile
+
+    if _JAX_CACHE["dir"] is None:
+        _JAX_CACHE["dir"] = tempfile.mkdtemp(prefix="minips-jax-cache-")
+    # plain subprocess ranks: the launcher's fork server imports jax
+    # before a rank's env exists, so jax would never read these knobs
+    cache = {"JAX_COMPILATION_CACHE_DIR": _JAX_CACHE["dir"],
+             "JAX_PERSISTENT_CACHE_MIN_COMPILE_TIME_SECS": "0",
+             "MINIPS_SPAWN": "subprocess"}
+    sig = (n, tuple(a for a in extra if not a.endswith("ck")))
+    if sig not in _JAX_CACHE["warm"]:
+        warm = {k: v for k, v in env.items() if k != "MINIPS_CHAOS_KILL"}
+        warm["MINIPS_HEARTBEAT"] = _WARM_HEARTBEAT
+        _jax_job(n, extra, str(tmp_path / "jax-warm" / "ck"),
+                 {**warm, **cache}, timeout)
+        _JAX_CACHE["warm"].add(sig)
+    return cache
+
+
 def drill_beside_jax(port_ns, drill, tmp_path, monkeypatch):
     """Run the port's launched ``drill`` (its own asserts), then the JAX
     example under the same flags and env, and hold the membership
     outcomes equal. Returns both outcomes.
 
     The JAX job runs under the drill's heartbeat timeout (1 s in the
-    death drills) while each of its ranks compiles its step: on a loaded
-    host a rank can then miss its beats long enough for its peers to
-    convict it, a fault of the host and not of either package (the
-    reference's own copy of the drill shares it). A JAX job whose ranks
+    death drills), and a rank still compiling its step there can miss
+    its beats long enough for its peers to convict it, on a loaded host:
+    a fault of the host and not of either package. So the JAX job loads
+    its programs from a persistent compilation cache that an untimed run
+    of the same job filled (``_warm_jax_cache``). A JAX job whose ranks
     do not end as the port's did (``done`` where the port's were, the
     killed rank silent) runs once more, from a fresh checkpoint
     directory; the port's job runs once."""
@@ -290,15 +341,10 @@ def drill_beside_jax(port_ns, drill, tmp_path, monkeypatch):
     n, extra, env, timeout = got["job"]
     port = membership_outcome(got["port"][1])
     ends = {r: o["event"] for r, o in port["ranks"].items()}
+    cache = _warm_jax_cache(n, extra, env, timeout, tmp_path)
     for attempt in range(2):
         ck = str(tmp_path / f"jax{attempt}" / "ck")
-        _rc, events = jax_launch.run_local_job_raw(
-            n, [sys.executable, "-m", JAX_APP]
-            + [ck if a.endswith("ck") else a for a in extra],
-            base_port=None,
-            env_extra={"MINIPS_FORCE_CPU": "1", "JAX_PLATFORMS": "cpu",
-                       **env},
-            timeout=timeout, kill_on_failure=False)
+        _rc, events = _jax_job(n, extra, ck, {**env, **cache}, timeout)
         jax = membership_outcome(events)
         if {r: o["event"] for r, o in jax["ranks"].items()} == ends:
             break
