@@ -271,6 +271,24 @@ raises on failure:
     fallback. 30c: the same bench on the host wire, 2 launched processes
     with ``--compute jit`` on the card, beside 30a's rates. No kernel of
     K1-K4 lies on this path.
+31. the collective consistency plane and multi-host (``comm/cluster.py``,
+    ``train/ssp_trainer.py``, ``train/ssp_spmd.py``, ``train/cssp_ps.py``,
+    ``ckpt/orbax_backend.py``), 3 launched jobs on ``cuda:0``. 31a:
+    ``ssp_lr_example --model mlp --mode ssp --staleness 4`` (BASELINE.json
+    config 2: the 784-wide MLP, B 256, 60 steps) on 3 processes:
+    steps/s per process, gate waits, the skew bound s + 1, replica
+    agreement within 1e-4, falling loss. 31b: ``multihost_example
+    --model wd --mode ssp --staleness 4 --batch 1024`` on 2 processes (a
+    gloo group: they share the card): K1's launches in each process
+    (2 per step), the row-sparse union per sync and its bytes, the sync
+    backend, equal fingerprints. 31c, beside 31b: ``--model lr --mode
+    bsp`` on 2 processes against ``--oracle-hosts 2`` run in this
+    process, losses and fingerprints within 1e-6 (bitwise reported).
+    31d, in this process: ``--mode fused --model lm --sp-attn flash`` at
+    world one, K2-K4 once per block per step. 31e, in this process:
+    ``--mode fused`` LR with the sharded checkpoint drill on the DCP
+    backend, and ``convert_checkpoint`` native -> orbax -> native of a
+    dense and a sparse table on the card, bit-identical.
 
 Before it prints its result, and on every way out, the script stops and
 reaps every process it started that still runs: the launcher's fork
@@ -286,7 +304,11 @@ every rank; then phase 28a's BSP job as N launched processes, one card
 each, beside 2 processes sharing card 0, samples/s in all; then phase
 30's plane with N ranks on the N cards (``torch.cuda.nccl``), sgd and
 adam at the bench's defaults, its states and the aggregator's device tier
-against the same ranks on card 0 within 1e-5.
+against the same ranks on card 0 within 1e-5; then phase 31's Wide&Deep
+on the collective plane as N launched processes, one card each, through
+NCCL: ``--mode fused`` held to the same job on one process (losses within
+2e-3) and ``--mode bsp`` (replicas equal; the reference has no oracle for
+it), K1 launched in every process.
 
 The last two lines are a JSON object with every kernel's numbers (its
 launches on each path beside them) and then ``{"ok": true, "device":
@@ -577,6 +599,32 @@ MESH_AGG_REDUCES, MESH_AGG_KEYS = 4, 4096
 MESH_TREE_PROCS = 3
 MESH_TREE_FLAGS = ["--model", "sparse", "--mode", "ssp", "--staleness", "2",
                    "--iters", "30", "--batch", "64"]
+# phase 31: the collective consistency plane and multi-host on cuda:0.
+# 31a: BASELINE.json config 2 at ssp_lr_example's defaults on CS_MLP_PROCS
+# processes; the gate's skew is read before it waits, so its bound is s + 1
+# (the JAX package's smoke, tests/test_distributed_smoke.py); replicas after
+# finalize within CS_FP_TOL. 31b: the Wide&Deep CollectiveSSPPS at 28a's
+# batch on CS_PROCS processes; 31c: the lr CollectiveSSP on CS_PROCS
+# processes against --oracle-hosts in this process: the same kernels on the
+# same shapes and gloo's sum of two deltas, so bitwise is expected and
+# CS_ORACLE_TOL the bound checked. 31d: the LM with ring flash at world one;
+# 31e: the sharded checkpoint drill and convert_checkpoint
+CS_MLP_PROCS, CS_SSP = 3, 4
+CS_PROCS, CS_WD_BATCH = 2, 1024
+CS_FP_TOL = 1e-4
+CS_ORACLE_TOL = 1e-6
+CS_LM_ITERS, CS_LM_DEPTH = 30, 2  # multihost_example's lm defaults
+# 31d's attention as (B, Tq, Tk, H, Hk, D, q_off, k_off): --batch 64,
+# --seq-len 64, the fixed LM's 2 heads of 16 at world one; phase 7 holds
+# K2-K4 to their plain versions there
+CS_LM_CASE = (64, 64, 64, 2, 2, 16, 0, 0)
+CS_FUSED_TOL = 2e-3  # --ranks N: N cards' fused wd against one process
+# --ranks N: the bsp wd job on N cards (NCCL) against the same flags on N
+# processes sharing card 0 (gloo): the losses within CS_BSP_TOL, the
+# fingerprint within CS_BSP_FP_RTOL of its value. On the CPU, one rank's
+# delta doubled in the row-sparse merge moves 4 ranks' losses by 4.7e-3 to
+# 6.7e-3 and the fingerprint by 3.0e-4 of its value
+CS_BSP_TOL, CS_BSP_FP_RTOL = 1e-3, 3e-5
 
 
 def check(cond: bool, msg: str) -> None:
@@ -3422,6 +3470,264 @@ def mesh_cards(torch, n: int, card: str) -> dict:
     return out
 
 
+def cs_in_process(argv: list) -> dict:
+    """``multihost_example.main(argv)`` in this process (world one, on
+    ``cuda:0``), its done line parsed."""
+    import contextlib
+    import io
+
+    from minips_tpu_torch.apps import multihost_example
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = multihost_example.main(argv)
+    lines = [ln for ln in buf.getvalue().splitlines() if ln.startswith("{")]
+    check(rc == 0 and lines, f"multihost_example {argv}: rc {rc}, output "
+          f"{buf.getvalue()[-2000:]}")
+    return json.loads(lines[-1])
+
+
+def cs_convert(torch, root: str) -> dict:
+    """31e's ``convert_checkpoint``: a trained dense (adagrad) and sparse
+    (adam) table on the card, native -> orbax (DCP) -> native, each leg
+    restored into fresh tables; every state leaf bit-identical."""
+    import numpy as np
+
+    from minips_tpu_torch.ckpt import convert_checkpoint, make_checkpointer
+    from minips_tpu_torch.tables.dense import DenseTable
+    from minips_tpu_torch.tables.sparse import SparseTable
+
+    dev = torch.device("cuda", 0)
+
+    def tables():
+        return {"d": DenseTable({"w": torch.zeros(1000, device=dev)},
+                                updater="adagrad", lr=0.1, device=dev),
+                "s": SparseTable(1 << 12, 8, updater="adam", lr=0.01,
+                                 seed=3, device=dev)}
+
+    live = tables()
+    rng = np.random.default_rng(0)
+    for _ in range(3):
+        live["d"].push({"w": torch.as_tensor(
+            rng.normal(size=1000).astype(np.float32), device=dev)})
+        keys = rng.integers(0, 1 << 20, 256)
+        live["s"].push(keys, torch.as_tensor(
+            rng.normal(size=(256, 8)).astype(np.float32), device=dev))
+    want = {k: t.state_dict() for k, t in live.items()}
+    shutil.rmtree(root, ignore_errors=True)
+    make_checkpointer(os.path.join(root, "native"), live,
+                      backend="native").save(5)
+    step = convert_checkpoint(os.path.join(root, "native"),
+                              os.path.join(root, "dcp"), tables(),
+                              src_backend="native", dst_backend="orbax")
+    fresh = tables()
+    make_checkpointer(os.path.join(root, "dcp"), fresh,
+                      backend="orbax").restore()
+    back = convert_checkpoint(os.path.join(root, "dcp"),
+                              os.path.join(root, "native2"), tables(),
+                              src_backend="orbax", dst_backend="native")
+    again = tables()
+    make_checkpointer(os.path.join(root, "native2"), again,
+                      backend="native").restore()
+    for got in (fresh, again):
+        for name, t in got.items():
+            have = t.state_dict()
+            for key, leaf in want[name].items():
+                a, b = have[key], leaf
+                same = (all(np.array_equal(x, y) for x, y in zip(a, b))
+                        if isinstance(a, list) else np.array_equal(a, b))
+                check(same, f"phase 31e convert: {name}.{key} differs")
+    shutil.rmtree(root, ignore_errors=True)
+    return {"step": step, "back": back, "tables": sorted(want)}
+
+
+def consistency_phase(torch, card: str) -> dict:
+    """Phase 31: the collective consistency plane and multi-host on the
+    card (module docstring). Returns the kernel launches of its paths."""
+    out = {}
+    # ---- 31a: BASELINE config 2 through SSPTrainer, 3 processes
+    t0 = time.perf_counter()
+    mlp = mp_job(CS_MLP_PROCS, "ssp_lr_example", [
+        "--model", "mlp", "--mode", "ssp", "--staleness", str(CS_SSP)])
+    for r in mlp:
+        check(r["event"] == "done" and r["device"] == "cuda:0",
+              f"phase 31a: rank {r.get('rank')}: {r}")
+        check(r["max_skew_seen"] <= CS_SSP + 1, f"phase 31a: rank "
+              f"{r['rank']} skew {r['max_skew_seen']} > {CS_SSP + 1}")
+        check(math.isfinite(r["loss_last"])
+              and r["loss_last"] < r["loss_first"], f"phase 31a: rank "
+              f"{r['rank']} loss {r['loss_first']} -> {r['loss_last']}")
+    for key in ("param_sum", "param_norm"):
+        v = [r[key] for r in mlp]
+        check(max(v) - min(v) < CS_FP_TOL, f"phase 31a: {key} {v}")
+    out["31a"] = {
+        "steps_per_s": [r["clock"] / r["wall_s"] for r in mlp],
+        "gate_waits": [r["gate_waits"] for r in mlp],
+        "max_skew": [r["max_skew_seen"] for r in mlp],
+        "loss": [[r["loss_first"], r["loss_last"]] for r in mlp],
+        "param_sum_spread": max(r["param_sum"] for r in mlp)
+        - min(r["param_sum"] for r in mlp),
+        "s": time.perf_counter() - t0}
+    print(f"BASELINE config 2 (3-layer MLP, SSP s = {CS_SSP}) through "
+          f"SSPTrainer on {CS_MLP_PROCS} processes sharing {card} "
+          "(phase 31a; steps/s = clock / wall_s): " + json.dumps(out["31a"]),
+          flush=True)
+    # ---- 31b and 31c side by side (neither reports a rate)
+    t0 = time.perf_counter()
+    wd, lr = side_by_side(
+        lambda: mp_job(CS_PROCS, "multihost_example", [
+            "--model", "wd", "--mode", "ssp", "--staleness", str(CS_SSP),
+            "--batch", str(CS_WD_BATCH)]),
+        lambda: mp_job(CS_PROCS, "multihost_example",
+                       ["--model", "lr", "--mode", "bsp"]))
+    for r in wd:
+        check(r["event"] == "done" and r["device"] == "cuda:0"
+              and r["sync_backend"] == "gloo", f"phase 31b: {r}")
+        k1 = r["kernel_launches"]["gather_rows"]
+        check(k1 == 2 * len(r["losses"]), f"phase 31b: rank {r['rank']} "
+              f"launched K1 {k1} times in {len(r['losses'])} steps")
+        check(r["max_skew_seen"] <= CS_SSP + 1, f"phase 31b: {r}")
+    fps = [r["param_fingerprint"] for r in wd]
+    check(len(set(fps)) == 1, f"phase 31b: fingerprints {fps}")
+    rounds = wd[0]["sync_rounds"]
+    out["31b"] = {
+        "k1_launches": [r["kernel_launches"]["gather_rows"] for r in wd],
+        "sync_backend": wd[0]["sync_backend"], "sync_rounds": rounds,
+        "union_rows_per_sync": wd[0]["union_rows"] / rounds,
+        "row_merge_bytes_per_sync": wd[0]["row_merge_bytes"] / rounds,
+        "union_wire_bytes_per_sync": wd[0]["union_wire_bytes"] / rounds,
+        "sync_bytes_per_sync": wd[0]["sync_bytes"] / rounds,
+        "sync_rows_max": wd[0]["sync_rows_max"],
+        "num_slots": wd[0]["num_slots"],
+        "fingerprints_equal": True, "fingerprint": fps[0],
+        "gate_waits": [r["gate_waits"] for r in wd],
+        "max_skew": [r["max_skew_seen"] for r in wd],
+        "loss": [[r["loss_first"], r["loss_last"]] for r in wd]}
+    oracle = cs_in_process(["--model", "lr", "--mode", "bsp",
+                            "--oracle-hosts", str(CS_PROCS)])
+    gaps, bitwise = [], True
+    for r in lr:
+        check(r["event"] == "done" and r["sync_hlo_has_all_reduce"]
+              and r["sync_backend"] == "gloo", f"phase 31c: {r}")
+        want = oracle["losses_per_host"][r["rank"]]
+        gaps.append(max(abs(a - b) for a, b in zip(r["losses"], want)))
+        fp = oracle["param_fingerprints"][r["rank"]]
+        gaps.append(abs(r["param_fingerprint"] - fp))
+        bitwise &= r["losses"] == want and r["param_fingerprint"] == fp
+    check(max(gaps) <= CS_ORACLE_TOL, f"phase 31c: the 2-process run "
+          f"against the oracle: gaps {gaps}")
+    out["31c"] = {"max_gap": max(gaps), "bitwise": bitwise,
+                  "sync_rounds": lr[0]["sync_rounds"],
+                  "sync_bytes": lr[0]["sync_bytes"],
+                  "loss": [[r["loss_first"], r["loss_last"]] for r in lr]}
+    out["31bc_s"] = time.perf_counter() - t0
+    print(f"Wide&Deep on the collective plane, SSP s = {CS_SSP}, B "
+          f"{CS_WD_BATCH}, {CS_PROCS} processes sharing {card} (phase 31b): "
+          + json.dumps(out["31b"]), flush=True)
+    print(f"LR CollectiveSSP BSP on {CS_PROCS} processes against "
+          f"--oracle-hosts {CS_PROCS} in this process (phase 31c, bound "
+          f"{CS_ORACLE_TOL}): " + json.dumps(out["31c"]), flush=True)
+    # ---- 31d: ring flash at world one, K2-K4 counted in this process
+    from minips_tpu_torch.ops import flash_attention as tfa
+    from minips_tpu_torch.ops.gather import gather_rows
+
+    t0 = time.perf_counter()
+    names = ("flash_forward", "flash_bwd_dq", "flash_bwd_dkv")
+    for name in names:
+        getattr(tfa, name).launches = 0
+    lm = cs_in_process(["--mode", "fused", "--model", "lm", "--sp-attn",
+                        "flash", "--iters", str(CS_LM_ITERS)])
+    launches = {name: getattr(tfa, name).launches for name in names}
+    for name in names:
+        check(launches[name] == CS_LM_DEPTH * CS_LM_ITERS, "phase 31d: "
+              f"{name} launched {launches[name]} times in {CS_LM_ITERS} "
+              f"steps of {CS_LM_DEPTH} blocks")
+    check(lm["device"] == "cuda:0" and all(map(math.isfinite, lm["losses"]))
+          and lm["loss_last"] < lm["loss_first"], f"phase 31d: {lm}")
+    out["31d"] = {"launches": launches, "loss": [lm["loss_first"],
+                                                 lm["loss_last"]],
+                  "step_ms": 1000 * lm["loop_s"] / CS_LM_ITERS,
+                  "s": time.perf_counter() - t0}
+    print(f"multihost_example --mode fused --model lm --sp-attn flash at "
+          f"world one on {card} (phase 31d; step_ms = the training loop's "
+          "time over its steps): " + json.dumps(out["31d"]),
+          flush=True)
+    # ---- 31e: the sharded checkpoint drill (DCP) and convert_checkpoint
+    t0 = time.perf_counter()
+    root = os.path.join(REPO, "build", "chip_smoke_dcp")
+    shutil.rmtree(root, ignore_errors=True)
+    k1 = gather_rows.launches
+    drill = cs_in_process(["--mode", "fused", "--iters", "10",
+                           "--checkpoint-dir", os.path.join(root, "mh"),
+                           "--save-at", "5"])
+    check(drill["ckpt_roundtrip_ok"] is True, f"phase 31e: {drill}")
+    conv = cs_convert(torch, os.path.join(root, "conv"))
+    check(gather_rows.launches == k1, "phase 31e: K1 launched off its path")
+    out["31e"] = {"ckpt_roundtrip_ok": True, "convert": conv,
+                  "s": time.perf_counter() - t0}
+    shutil.rmtree(root, ignore_errors=True)
+    print("the DCP checkpoint drill and convert_checkpoint on the card "
+          "(phase 31e): " + json.dumps(out["31e"]), flush=True)
+    return {"k1": {f"cssp_wd_ssp_rank{r['rank']}":
+                   r["kernel_launches"]["gather_rows"] for r in wd},
+            "flash": {name: {"multihost_lm_fused_flash_ws1": launches[name]}
+                      for name in names}}
+
+
+def consistency_cards(n: int) -> dict:
+    """``--ranks n``'s phase 31: Wide&Deep on the collective plane as n
+    launched processes, one card each, through NCCL: ``--mode fused``
+    held to the same job on one process, and ``--mode bsp`` (replicas
+    equal) held to the same job on n processes that share card 0 through
+    gloo; K1 in every process."""
+    t0 = time.perf_counter()
+    wd = ["--model", "wd", "--batch", "1024"]
+    fused = mp_job(n, "multihost_example", ["--mode", "fused"] + wd)
+    one = mp_job(1, "multihost_example", ["--mode", "fused"] + wd)
+    bsp = mp_job(n, "multihost_example", ["--mode", "bsp"] + wd)
+    shared = mp_job(n, "multihost_example", ["--mode", "bsp"] + wd,
+                    env={"CUDA_VISIBLE_DEVICES": "0"})
+    spread = [f"cuda:{i}" for i in range(n)]
+    for job, backend, devices in ((fused, "nccl", spread),
+                                  (bsp, "nccl", spread),
+                                  (shared, "gloo", ["cuda:0"] * n)):
+        for r in job:
+            check(r["event"] == "done" and r["sync_backend"] == backend
+                  and r["kernel_launches"]["gather_rows"] > 0,
+                  f"phase 31 on {n} cards: {r}")
+        check(sorted(r["device"] for r in job) == devices, f"phase 31 on "
+              f"{n} cards: devices {[r['device'] for r in job]}")
+    gap = max(abs(a - b) for r in fused
+              for a, b in zip(r["losses"], one[0]["losses"]))
+    check(gap <= CS_FUSED_TOL, f"phase 31 fused wd on {n} cards against "
+          f"one process: loss gap {gap}")
+    fps = [r["param_fingerprint"] for r in bsp]
+    check(len(set(fps)) == 1, f"phase 31 bsp wd on {n} cards: {fps}")
+    by_rank = {r["rank"]: r for r in shared}
+    bsp_gap = max(abs(a - b) for r in bsp for a, b in
+                  zip(r["losses"], by_rank[r["rank"]]["losses"], strict=True))
+    fp_one = shared[0]["param_fingerprint"]
+    fp_gap = abs(fps[0] - fp_one) / abs(fp_one)
+    check(bsp_gap <= CS_BSP_TOL and fp_gap <= CS_BSP_FP_RTOL, "phase 31 bsp "
+          f"wd on {n} cards against {n} processes on card 0: loss gap "
+          f"{bsp_gap} (bound {CS_BSP_TOL}), fingerprint {fps[0]} against "
+          f"{fp_one}, {fp_gap} of it (bound {CS_BSP_FP_RTOL})")
+    out = {"fused_loss_gap": gap,
+           "bsp_loss_gap_to_shared_card": bsp_gap,
+           "bsp_fingerprint_rel_gap_to_shared_card": fp_gap,
+           "fused_k1": [r["kernel_launches"]["gather_rows"] for r in fused],
+           "bsp_k1": [r["kernel_launches"]["gather_rows"] for r in bsp],
+           "bsp_sync_bytes": bsp[0]["sync_bytes"],
+           "bsp_union_rows_per_sync": bsp[0]["union_rows"]
+           / bsp[0]["sync_rounds"],
+           "s": time.perf_counter() - t0}
+    print(f"Wide&Deep on the collective plane on {n} cards through NCCL "
+          f"(phase 31; bsp against {n} processes on card 0 through gloo, "
+          f"bounds {CS_BSP_TOL} and {CS_BSP_FP_RTOL}): " + json.dumps(out),
+          flush=True)
+    return out
+
+
 def multiproc_cards(n: int) -> dict:
     """``--ranks n``'s phase 28a: Wide&Deep's BSP job as n launched
     processes, one card each, beside MP_PROCS processes that share card 0,
@@ -3514,6 +3820,7 @@ def multi_card_main(torch, n: int) -> int:
         {k: [r["k1"][k] for r in appg] for k in head["k1"]}), flush=True)
     multiproc_cards(n)
     mesh_cards(torch, n, " | ".join(sorted(set(cards[:n]))))
+    consistency_cards(n)
     print("processes still running at the end, killed: "
           + json.dumps(stop_children()), flush=True)
     print(cards[0])
@@ -3829,6 +4136,9 @@ def main() -> int:
         # no query (dK = dV = 0)
         (1, 128, 384, 8, 2, 64, 0, 0),
         (1, 130, 130, 2, 1, 72, 0, 0),       # D = 72: a second atom 8 wide
+        # head dim 16: multihost_example's fixed LM (dim 32, 2 heads) at
+        # its defaults, the shape phase 31d drives K2-K4 at
+        CS_LM_CASE,
     ]
     n_cases = 0
     for dtype in (torch.float32, torch.bfloat16):
@@ -3845,7 +4155,8 @@ def main() -> int:
                   # the LM at GQA kv_heads 8 and at head dim 128
                   (LM_B, LM_T, LM_T, LM_DIM // 64, 8, 64, 0, 0),
                   (LM_B, LM_T, LM_T, LM_DIM // 128, LM_DIM // 128, 128,
-                   0, 0))
+                   0, 0),
+                  CS_LM_CASE)  # phase 31d's LM at head dim 16
     for i, case in enumerate(view_cases):
         record(*flash_errors(torch, tfa, case, torch.bfloat16, True,
                              n_cases + 1 + i, views=True))
@@ -3853,7 +4164,7 @@ def main() -> int:
     print(f"flash kernels: {n_cases} cases against the plain versions "
           "(f32 and bf16, causal and not, MHA/GQA g=4/MQA, offsets, ragged "
           "T=100/130/200/328, Tq=192 and 200 against the 128-row Q tile, "
-          "Tk=384 > Tq=128 causal, D 40/64/72/128, full width "
+          "Tk=384 > Tq=128 causal, D 16/40/64/72/128, full width "
           f"{full} bf16 causal; bf16 causal q/k/v as views of the fused "
           f"activation at {list(view_cases)}), gradients with a nonzero lse "
           f"cotangent; max |err| {flash_err}, over max(1, max |value|) "
@@ -4560,15 +4871,21 @@ def main() -> int:
     torch.cuda.empty_cache()
     mesh_phase(torch, card)
     phase_s["30"] = time.perf_counter() - t0
+    # --------- 31. the collective consistency plane and multi-host
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    cons = consistency_phase(torch, card)
+    phase_s["31"] = time.perf_counter() - t0
     print("LM decoding (phase 19): " + json.dumps(decoding), flush=True)
-    print("seconds taken by phases 17-30: " + json.dumps(phase_s),
+    print("seconds taken by phases 17-31: " + json.dumps(phase_s),
           flush=True)
 
     kernels[0]["launches_by_path"] = dict(
         lrmlp=main_launches["gather_rows"], **wd_launches, **app_launches,
         lrmlp_group_ws1=grp["pair"]["gather_launches"],
         **{f"{k}_group_ws1": v for k, v in appg["k1"].items()},
-        **control["k1"])
+        **control["k1"], **cons["k1"])
     for k in kernels[1:]:
         k["launches_by_path"] = {f"lm_{opt}": v[k["name"]]
                                  for opt, v in lm_paths.items()}
@@ -4588,6 +4905,7 @@ def main() -> int:
             for name in ("dp_flash", "sp_flash", "sp_a2a_flash")})
         k["launches_by_path"]["lm_example_dp_flash_resumed_group_ws1"] = \
             appg["flash_resumed"][k["name"]]
+        k["launches_by_path"].update(cons["flash"][k["name"]])
 
     print("processes still running at the end, killed: "
           + json.dumps(stop_children()), flush=True)

@@ -362,11 +362,12 @@ class Engine:
                                  group=self.group, **kwargs)
 
     def barrier(self) -> None:
-        """The group's barrier. Without a group the JAX package's barrier
-        is the multi-host cluster's, which is not ported yet."""
+        """The group's barrier; without a group, the multi-host
+        cluster's (``comm/cluster.py``, a no-op on one process), as in
+        the JAX package (SURVEY.md §3.4)."""
         if self.group is None:
-            raise NotImplementedError(
-                "Engine.barrier without a process group is multi-host and "
-                "not ported yet (ROADMAP.md queue 1 item 16: "
-                "comm/cluster.py becomes a torch.distributed bootstrap)")
+            from minips_tpu_torch.comm.cluster import barrier as cluster_barrier
+
+            cluster_barrier()
+            return
         barrier(self.group)

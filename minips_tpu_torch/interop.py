@@ -28,6 +28,14 @@ on either side by ``stack_layers``, ``ep_lm_specs``), the shard that the
 JAX array places on device (d, m) of its mesh for rank ``d·model_size +
 m``: pass ``m`` as the index for tp and pp, ``d`` for ep.
 
+The trainers of the collective consistency plane carry across too:
+``load_ssp`` (an ``SSPTrainer``'s raveled replica and clock),
+``load_cssp`` (a ``CollectiveSSP``'s params, opt state, sync base and
+residual) and ``load_cssp_ps`` (a ``CollectiveSSPPS``'s tables and
+bases). A JAX trainer's table is padded for its mesh, a port trainer's
+for one device: they load through ``load_dense(..., refit=True)``, which
+refits each params-length leaf.
+
 Every array here is global, as the JAX table holds it. Into a table
 sharded over a process group, each rank loads the same global arrays and
 keeps its own range; out of one, the shards are gathered, a collective
@@ -80,12 +88,84 @@ def shard_from_numpy(tree, specs, index: int, n: int,
                     shard_params(host, specs, index, n))
 
 
-def load_dense(table: DenseTable, params, opt_leaves) -> None:
+def _refit(vec, table: DenseTable) -> np.ndarray:
+    """A JAX table's padded 1-D leaf (params or a params-length moment)
+    refitted to ``table``'s padding: the same first ``num_keys`` entries,
+    zeros after (padding keys never move)."""
+    vec = np.asarray(vec)
+    out = np.zeros((table.padded,), vec.dtype)
+    out[: table.num_keys] = vec[: table.num_keys]
+    return out
+
+
+def load_dense(table: DenseTable, params, opt_leaves, *,
+               refit: bool = False) -> None:
     """Load the JAX table's padded flat params and its opt-state leaves
     (``jax.tree.leaves(opt_state)``, in that order), global; each rank
-    keeps its shard. bfloat16 leaves are read bit for bit."""
-    table.load_state_dict({"params": np.asarray(params),
-                           "opt_state": [np.asarray(x) for x in opt_leaves]})
+    keeps its shard. bfloat16 leaves are read bit for bit. A state padded
+    otherwise than ``table`` is refused, unless ``refit``: a JAX table on
+    a mesh of another size than this table's group pads its flat vector
+    otherwise, so each params-length leaf is then refitted (0-d leaves
+    carry as they are), and a per-block leaf (adam8's scales), which does
+    not refit, is refused."""
+    params = np.asarray(params)
+    leaves = [np.asarray(x) for x in opt_leaves]
+    if refit and params.shape != (table.padded,):
+        padded = params.shape[0]
+        for i, x in enumerate(leaves):
+            if x.ndim and x.shape[0] != padded:
+                raise ValueError(f"opt leaf of shape {x.shape} is not "
+                                 f"params-length ({padded}): it does not "
+                                 "carry across paddings")
+            if x.ndim:
+                leaves[i] = _refit(x, table)
+        params = _refit(params, table)
+    table.load_state_dict({"params": params, "opt_state": leaves})
+
+
+def load_ssp(trainer, flat, clock: int = 0) -> None:
+    """Carry a JAX ``SSPTrainer``'s replica (``state_dict()["flat"]``, the
+    raveled params) and clock into the port's ``SSPTrainer``."""
+    trainer.load_state_dict({"flat": np.asarray(flat),
+                             "clock": np.asarray(clock)})
+
+
+def load_cssp(trainer, params, opt_leaves, base=None, residual=None) -> None:
+    """Carry a JAX ``CollectiveSSP``'s state into the port's: its table's
+    padded params and opt leaves (``jax.tree.leaves(opt_state)``), its
+    sync base (``_base``; the params when omitted) and, on a compressed
+    wire, its error-feedback residual; each refitted to the port table's
+    padding."""
+    t = trainer.table
+    load_dense(t, params, opt_leaves, refit=True)
+    trainer._base = torch.as_tensor(_refit(
+        params if base is None else base, t)).to(t.params)
+    if residual is not None:
+        trainer._residual = torch.as_tensor(_refit(residual, t)).to(t.params)
+
+
+def load_cssp_ps(trainer, dense: dict, sparse: dict,
+                 dense_bases: dict = None, sparse_bases: dict = None) -> None:
+    """Carry a JAX ``CollectiveSSPPS``'s tables and sync bases into the
+    port's: ``dense`` maps a table name to ``(params, opt_leaves)``,
+    ``sparse`` to its ``state_dict()``; the bases (``_dense_base``: name ->
+    padded params; ``_sparse_base``: name -> {leaf name -> rows}) default
+    to the loaded state."""
+    for name, (params, opt) in dense.items():
+        t = trainer.dense[name]
+        load_dense(t, params, opt, refit=True)
+        base = (dense_bases or {}).get(name)
+        trainer._dense_base[name] = (t.params.clone() if base is None else
+                                     torch.as_tensor(_refit(base, t))
+                                     .to(t.params))
+    for name, state in sparse.items():
+        t = trainer.sparse[name]
+        load_sparse(t, state)
+        base = (sparse_bases or {}).get(name)
+        trainer._sparse_base[name] = {
+            ln: (leaf.clone() if base is None else
+                 torch.as_tensor(np.asarray(base[ln])).to(leaf))
+            for ln, leaf in trainer._leaves(t)}
 
 
 def dense_to_numpy(table: DenseTable) -> tuple[np.ndarray, list]:

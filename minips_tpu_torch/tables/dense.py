@@ -368,6 +368,31 @@ class DenseTable:
         return {"params": _host(self._gather(self.params)),
                 "opt_state": [_host(self._gather(x)) for x in self.opt_state]}
 
+    def global_arrays(self) -> dict:
+        """The table's state as this rank holds it — the counterpart of
+        the JAX table's ``global_arrays()``, whose addressable shards
+        these are: ``params`` (this rank's range of the padded vector)
+        and ``opt_state`` (each 1-D leaf's range, each 0-d leaf whole).
+        No collective: a checkpoint writes each rank's part where it is
+        (``ckpt/orbax_backend.py``)."""
+        return {"params": self.params, "opt_state": list(self.opt_state)}
+
+    def load_global_arrays(self, arrays: dict) -> None:
+        """Install the parts :meth:`global_arrays` returned (a restore
+        of this rank's shards): shapes and dtypes must be this rank's."""
+        new = [arrays["params"]] + list(arrays["opt_state"])
+        cur = [self.params] + list(self.opt_state)
+        if len(new) != len(cur):
+            raise ValueError(f"opt state leaf count mismatch: table has "
+                             f"{len(cur) - 1}, state has {len(new) - 1}")
+        for a, b in zip(new, cur):
+            if tuple(a.shape) != tuple(b.shape) or a.dtype != b.dtype:
+                raise ValueError(f"shard {tuple(a.shape)} {a.dtype} does "
+                                 f"not match this rank's {tuple(b.shape)} "
+                                 f"{b.dtype}")
+        moved = [a.to(self.device) for a in new]
+        self.params, self.opt_state = moved[0], moved[1:]
+
     def load_state_dict(self, state: dict) -> None:
         """Load a global state (as :meth:`state_dict` returns it, or the
         JAX table's); each rank keeps its shard. The padded size depends

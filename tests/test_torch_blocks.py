@@ -12,8 +12,8 @@ against the JAX package's.
   ``BlockMaster`` beside a JAX client (and the other way round), every
   block exactly once, and the master re-serves a dead worker's block.
 
-The launched drill of ``tests/test_blocks_multiproc.py`` waits for the
-port of ``apps/ssp_lr_example.py`` (ROADMAP.md queue 1 item 16).
+The launched drills of ``tests/test_blocks_multiproc.py`` run on the
+port in ``tests/test_torch_blocks_multiproc.py``.
 """
 
 from __future__ import annotations

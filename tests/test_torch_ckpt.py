@@ -22,6 +22,7 @@ from minips_tpu.ckpt.checkpoint import Checkpointer as JCheckpointer
 from minips_tpu.tables.sparse import SparseTable as JSparse
 from minips_tpu_torch import interop
 from minips_tpu_torch.ckpt import make_checkpointer
+from minips_tpu_torch.ckpt.orbax_backend import OrbaxCheckpointer
 from minips_tpu_torch.ckpt.checkpoint import (Checkpointer, _flatten,
                                               _unflatten)
 from minips_tpu_torch.consistency import SSP
@@ -196,10 +197,10 @@ def test_make_checkpointer_backends(tmp_path, monkeypatch):
     monkeypatch.setenv("MINIPS_CKPT_BACKEND", "native")
     assert type(make_checkpointer(str(tmp_path), {"d": d})) is Checkpointer
     monkeypatch.setenv("MINIPS_CKPT_BACKEND", "orbax")
-    with pytest.raises(NotImplementedError, match="item 16"):
-        make_checkpointer(str(tmp_path), {"d": d})
-    with pytest.raises(NotImplementedError, match="item 16"):
-        make_checkpointer(str(tmp_path), {"d": d}, backend="orbax")
+    assert type(make_checkpointer(str(tmp_path), {"d": d})) \
+        is OrbaxCheckpointer
+    assert type(make_checkpointer(str(tmp_path), {"d": d},
+                                  backend="orbax")) is OrbaxCheckpointer
     with pytest.raises(ValueError, match="unknown checkpoint backend"):
         make_checkpointer(str(tmp_path), {"d": d}, backend="zarr")
 

@@ -201,12 +201,11 @@ def test_engine_defaults_and_unported_features(tmp_path):
     assert e.device == torch.device("cpu")
     with pytest.raises(ValueError, match="unknown table kind"):
         e.create_table(TableConfig(kind="ragged"))
-    # the native checkpointer is ported; the orbax backend is not
+    # both checkpoint backends; the barrier of one process returns
     assert e.make_checkpointer(str(tmp_path)).list_steps() == []
-    for call in (lambda: e.make_checkpointer(str(tmp_path), backend="orbax"),
-                 e.barrier):
-        with pytest.raises(NotImplementedError, match="item 16"):
-            call()
+    assert e.make_checkpointer(str(tmp_path / "dcp"),
+                               backend="orbax").list_steps() == []
+    e.barrier()
     with pytest.raises(RuntimeError, match="start_everything"):
         Engine(device="cpu").register_table("x", None, None)
 
