@@ -1003,6 +1003,12 @@ def device_time(torch, run, steps: int, step_ms: float) -> dict:
                              ProfilerActivity.CUDA]) as prof:
         run()
         torch.cuda.synchronize()
+    return device_breakdown(torch, prof, steps, step_ms)
+
+
+def device_breakdown(torch, prof, steps: int, step_ms: float) -> dict:
+    """``device_time``'s breakdown of a finished profile ``prof`` of
+    ``steps`` steps: the CUDA intervals of its events by name."""
     by_name: dict = {}
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
@@ -3753,6 +3759,308 @@ def multiproc_cards(n: int) -> dict:
     return rates
 
 
+# phase 32: the profiling tooling (utils/profiling.py, trace_analysis.py,
+# comm_analysis.py) over paths that launch K1-K4. 32a: TrainLoop's
+# profile window of TL_ITERS steps of the Wide&Deep spmd step and of
+# lm_example at phase 18's full width; each kernel's count in the trace's
+# device table equal to its launch counter over the window's steps, and the
+# table's busy time per step within TL_BUSY_TOL of device_time's over the
+# same capture. 32b: CollectiveSSP syncs of a TL_SYNC_LEN-element LR delta
+# through an NCCL group of one on each wire, the profiled traffic equal to
+# SyncPlane.plan's. --ranks N: the sharded SparseTable's traffic
+# invariants on N NCCL ranks (TL_SLOTS tables 64x apart, TL_BATCHES)
+TL_ITERS, TL_WINDOW = 14, (10, 13)  # TrainLoop's default profile window
+TL_BUSY_TOL = 0.10
+TL_SYNC_LEN = 1 << 20
+TL_SYNC_COMMS = ("float32", "bfloat16", "int8")
+TL_SLOTS, TL_BATCHES = (1 << 16, 1 << 22), (3072, 4 * 3072)
+K1_RE = r"\bgather_(narrow|rows)_kernel\b"
+FLASH_RE = {"flash_forward": r"\bflash_fwd\w*_kernel\b",
+            "flash_bwd_dq": r"\bflash_bwd_dq\w*_kernel\b",
+            "flash_bwd_dkv": r"\bflash_bwd_dkv\w*_kernel\b"}
+SYNC_KIND = {"all_reduce": "all-reduce", "all_to_all": "all-to-all",
+             "all_gather": "all-gather"}
+
+
+def watched_window(torch, run, counters):
+    """``run()`` (an app's ``run`` whose TrainLoop has ``profile_dir``)
+    with the loop's ``StepWindowProfiler`` watched: the launch counters
+    and the host clock read as its window opens and as it closes.
+    Returns (run's result, the window's profiler, its launches by kernel,
+    its wall ms)."""
+    from minips_tpu_torch.train import loop as tloop
+
+    base = tloop.StepWindowProfiler
+    seen: dict = {}
+
+    class Watched(base):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            seen["window"] = self
+
+        def on_step(self, step):
+            if (step == self.start and self._ctx is None) or (
+                    step == self.stop and self._ctx is not None):
+                torch.cuda.synchronize()
+                seen[step] = (counters(), time.perf_counter())
+            super().on_step(step)
+
+    tloop.StepWindowProfiler = Watched
+    try:
+        out = run()
+    finally:
+        tloop.StepWindowProfiler = base
+    w = seen["window"]
+    check(w.start in seen and w.stop in seen and w.profile is not None,
+          f"phase 32a: the profile window [{w.start}, {w.stop}) did not "
+          "open and close inside the run")
+    (c0, t0), (c1, t1) = seen[w.start], seen[w.stop]
+    return out, w, {k: c1[k] - c0[k] for k in c0}, 1e3 * (t1 - t0)
+
+
+def unmatched_launches(path: str) -> list:
+    """How many of the host's kernel launches, copies and fills in a
+    capture have no device event (matched by correlation id), then the
+    first and last 8 of them with their distance from the capture's
+    edges."""
+    import gzip
+
+    with gzip.open(path, "rt") as f:
+        ev = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]
+    kept = {e.get("args", {}).get("correlation") for e in ev
+            if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")}
+    t0 = min(float(e["ts"]) for e in ev)
+    t1 = max(float(e["ts"]) + float(e.get("dur", 0.0)) for e in ev)
+    lost = [(e["name"], round(float(e["ts"]) - t0, 1),
+             round(t1 - float(e["ts"]), 1)) for e in ev
+            if e.get("cat") in ("cuda_runtime", "cuda_driver")
+            and re.search("Launch|Memcpy|Memset", e["name"])
+            and e.get("args", {}).get("correlation") not in kept]
+    return [len(lost)] + lost[:8] + lost[-8:]
+
+
+def window_tables(torch, tag, window, launches, patterns, wall_ms):
+    """32a's checks on one profiled window: each kernel of ``patterns``
+    in the trace's device table as often as its counter rose over the
+    window, and the table's busy time within TL_BUSY_TOL of
+    ``device_time``'s over the same capture."""
+    from minips_tpu_torch.utils import trace_analysis as ta
+
+    steps = window.stop - window.start
+    out = ta.summarize(window.log_dir, top=10 ** 6)
+    check(out.get("source") == "device", f"phase 32a {tag}: {out}")
+    seen = {k: sum(o["count"] for o in out["ops"]
+                   if re.search(pat, o["name"]))
+            for k, pat in patterns.items()}
+    for k, want in launches.items():
+        check(want > 0 and seen[k] == want, f"phase 32a {tag}: {k} seen "
+              f"{seen[k]} times in the trace's device table, launched "
+              f"{want} times over the window's {steps} steps; the count "
+              "of launches without a device event, then the first and last "
+              "8 as (name, us from the capture's start, us to its end): "
+              + json.dumps(unmatched_launches(out["trace_file"])))
+    dev = device_breakdown(torch, window.profile, steps, wall_ms / steps)
+    busy_ms = out["busy_us"] / 1e3 / steps
+    gap = abs(busy_ms - dev["device_busy_ms"]) / dev["device_busy_ms"]
+    check(gap <= TL_BUSY_TOL, f"phase 32a {tag}: the trace's busy time "
+          f"{busy_ms} ms a step against device_time's "
+          f"{dev['device_busy_ms']} ms over the same capture")
+    row = {"steps": steps, "launches": launches, "seen": seen,
+           "busy_ms_per_step": busy_ms,
+           "device_time_busy_ms_per_step": dev["device_busy_ms"],
+           "busy_gap": gap,
+           "trace_top": [{"name": o["name"][:80],
+                          "ms": o["total_us"] / 1e3 / steps,
+                          "calls": o["count"] / steps}
+                         for o in out["ops"][:8]],
+           "device_time_top": dev["top"][:8],
+           "trace_file": out["trace_file"]}
+    return row
+
+
+def tooling_phase(torch, dev, card: str) -> dict:
+    """Phase 32: the profiling tooling on the card. 32a:
+    ``--profile_dir`` over the Wide&Deep spmd app (K1, 2 a step) and
+    ``lm_example`` at phase 18's full width (K2-K4), each window's device
+    table against the launch counters and ``device_time``; 32b: a
+    profiled ``CollectiveSSP`` sync through an NCCL group of one on each
+    wire against ``SyncPlane.plan``; 32c: ``obs.merge --xla`` of phase
+    27's rank traces with 32a's Wide&Deep capture."""
+    import argparse
+    import copy
+    import glob
+
+    import torch.distributed as dist
+
+    from minips_tpu_torch.apps import lm_example as lmx
+    from minips_tpu_torch.apps import wide_deep_example as wdx
+    from minips_tpu_torch.core import config as tcfg
+    from minips_tpu_torch.ops import flash_attention as tfa
+    from minips_tpu_torch.ops.gather import gather_rows
+    from minips_tpu_torch.utils.metrics import MetricsLogger
+
+    sys.path.insert(0, os.path.join(REPO, "tests"))
+    import torch_comm_analysis_ranks as tranks
+
+    root = os.path.join(REPO, "build", "chip_smoke_tooling")
+    shutil.rmtree(root, ignore_errors=True)
+    out: dict = {}
+    # ---- 32a: Wide&Deep spmd, K1
+    t0 = time.perf_counter()
+    cfg = copy.deepcopy(wdx.DEFAULT)
+    cfg.train.num_iters, cfg.train.log_every = TL_ITERS, 0
+    wd_dir = os.path.join(root, "wide_deep")
+    args = argparse.Namespace(
+        exec_mode="spmd", model="widedeep", eval_frac=None,
+        dtype="float32", device=str(dev), data_file=None, stream=False,
+        profile_dir=wd_dir)
+    res, win, launches, wall = watched_window(
+        torch, lambda: wdx.run(cfg, args, MetricsLogger(None,
+                                                        verbose=False)),
+        lambda: {"gather_rows": gather_rows.launches})
+    check(len(res["losses"]) == TL_ITERS
+          and all(map(math.isfinite, res["losses"])), f"phase 32a: {res}")
+    check(launches["gather_rows"] == 2 * (win.stop - win.start),
+          f"phase 32a: Wide&Deep launched K1 {launches} times in "
+          f"{win.stop - win.start} steps")
+    out["32a_wide_deep"] = window_tables(torch, "Wide&Deep", win, launches,
+                                         {"gather_rows": K1_RE}, wall)
+    print(f"TrainLoop(profile_dir=...) over Wide&Deep spmd on {card} "
+          f"(phase 32a, window {TL_WINDOW} of {TL_ITERS} steps; "
+          "host times with the profiler on): "
+          + json.dumps(out["32a_wide_deep"]), flush=True)
+    # ---- 32a: lm_example at phase 18's full width, K2-K4
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    lm_dir = os.path.join(root, "lm")
+    lcfg = tcfg.Config(
+        table=tcfg.TableConfig(name="lm", kind="dense", updater="adam",
+                               lr=APP_LM_LR),
+        train=tcfg.TrainConfig(batch_size=LM_B, num_iters=TL_ITERS,
+                               log_every=0, seed=0))
+    largs = argparse.Namespace(device=dev, profile_dir=lm_dir,
+                               **APP_LM_FLAGS)
+    res, win, launches, wall = watched_window(
+        torch, lambda: lmx.run(lcfg, largs, MetricsLogger(None,
+                                                          verbose=False)),
+        lambda: {k: getattr(tfa, k).launches for k in FLASH_RE})
+    steps = win.stop - win.start
+    want = want_launches("dots", LM_DEPTH, steps)
+    check(launches == want, f"phase 32a: lm_example launched {launches} "
+          f"in {steps} steps, expected {want}")
+    check(all(map(math.isfinite, res["losses"])), f"phase 32a: {res}")
+    del res
+    out["32a_lm"] = window_tables(torch, "lm_example", win, launches,
+                                  FLASH_RE, wall)
+    print(f"TrainLoop(profile_dir=...) over lm_example at full width on "
+          f"{card} (phase 32a, window {TL_WINDOW} of {TL_ITERS} "
+          "steps; host times with the profiler on): "
+          + json.dumps(out["32a_lm"]), flush=True)
+    out["32a_s"] = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    # ---- 32b: profiled CollectiveSSP syncs through an NCCL group of one
+    t0 = time.perf_counter()
+    check(not dist.is_initialized(), "phase 32b: a process group is "
+          "already up in this process")
+    store = os.path.join(root, "store")
+    os.makedirs(root, exist_ok=True)
+    dist.init_process_group("nccl", store=dist.FileStore(store, 1), rank=0,
+                            world_size=1, device_id=dev)
+    try:
+        syncs = {}
+        for comm in TL_SYNC_COMMS:
+            r = tranks.cssp_sync_traffic(dist.group.WORLD, dev, comm,
+                                         TL_SYNC_LEN, root)
+            plan = [(SYNC_KIND[p["op"]], p["bytes"]) for p in r["plan"]]
+            seen = [(o["kind"], o["bytes"]) for o in r["observed"]["ops"]]
+            check(seen == plan and r["plan"][0]["backend"] == "nccl"
+                  and r["bytes"] == r["observed"]["total_bytes"],
+                  f"phase 32b {comm}: observed {seen}, planned {plan}, "
+                  f"counted {r['bytes']} bytes")
+            syncs[comm] = {"ops": r["observed"]["ops"],
+                           "total_bytes": r["observed"]["total_bytes"]}
+    finally:
+        dist.destroy_process_group()
+    out["32b"] = {"length": TL_SYNC_LEN, "syncs": syncs,
+                  "s": time.perf_counter() - t0}
+    print(f"profiled CollectiveSSP syncs through an NCCL group of one on "
+          f"{card} (phase 32b), equal to SyncPlane.plan on each wire: "
+          + json.dumps(out["32b"]), flush=True)
+    # ---- 32c: obs.merge --xla of phase 27's rank traces and 32a's capture
+    t0 = time.perf_counter()
+    traces = sorted(d for d in glob.glob(os.path.join(
+        REPO, "build", "chip_smoke_cp", "*", "trace"))
+        if not d.endswith("_drill" + os.sep + "trace")
+        and glob.glob(os.path.join(d, "trace-rank*.json")))
+    check(bool(traces), "phase 32c: no rank trace of phase 27 left")
+    merged = os.path.join(root, "merged_trace.json")
+    proc = subprocess.run(
+        [sys.executable, "-m", "minips_tpu_torch.obs.merge", traces[0],
+         "--xla", wd_dir, "-o", merged], capture_output=True, text=True,
+        timeout=300, cwd=REPO)
+    summary = json.loads(proc.stdout.strip().splitlines()[-1]) \
+        if proc.returncode == 0 and proc.stdout.strip() else {}
+    check(summary.get("xla_events", 0) > 0 and summary.get("ranks"),
+          f"phase 32c: merge --xla rc {proc.returncode}: "
+          f"{proc.stdout[-500:]} {proc.stderr[-1500:]}")
+    out["32c"] = {"rank_traces": traces[0], "ranks": summary["ranks"],
+                  "events": summary["events"],
+                  "xla_events": summary["xla_events"],
+                  "flows_linked": summary["flows_linked"],
+                  "s": time.perf_counter() - t0}
+    print("obs.merge --xla of phase 27's rank traces with 32a's Wide&Deep "
+          "capture (phase 32c): " + json.dumps(out["32c"]), flush=True)
+    shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
+def tooling_cards(n: int) -> dict:
+    """``--ranks n``'s phase 32: the range-sharded ``SparseTable``'s
+    collective traffic on n NCCL ranks, one card each, read off profiled
+    pulls and pushes: the group's bytes the same for tables 64x apart,
+    linear in the batch, and no op with a table's or a shard's row count
+    in its dims (``tests/test_torch_comm_analysis.py`` on gloo)."""
+    from minips_tpu_torch.parallel.mesh import run_ranks
+
+    sys.path.insert(0, os.path.join(REPO, "tests"))
+    import torch_comm_analysis_ranks as tranks
+
+    t0 = time.perf_counter()
+    root = os.path.join(REPO, "build", "chip_smoke_traffic")
+    shutil.rmtree(root, ignore_errors=True)
+    got = run_ranks(tranks.sparse_table_traffic, n, TL_SLOTS, TL_BATCHES,
+                    root, timeout=GROUP_TIMEOUT_S,
+                    store_dir=os.path.join(REPO, "build",
+                                           "chip_smoke_store"))
+    small, large = TL_SLOTS
+    b1, b4 = TL_BATCHES
+    rows = {}
+    for leg in ("pull", "push"):
+        tot = {key: sum(b for r in got for _, b, _ in r[leg][key])
+               for key in got[0][leg]}
+        check(tot[(small, b1)] == tot[(large, b1)] > 0,
+              f"--ranks {n} phase 32: {leg} bytes grew with the table: "
+              f"{tot[(small, b1)]} -> {tot[(large, b1)]}")
+        check(3 * tot[(small, b1)] < tot[(small, b4)]
+              <= 4 * tot[(small, b1)] + 1024 * n,
+              f"--ranks {n} phase 32: {leg} bytes not linear in the "
+              f"batch: {tot[(small, b1)]} -> {tot[(small, b4)]}")
+        for r in got:
+            for (slots, _), ops in r[leg].items():
+                check(ops and all(
+                    slots not in d and slots // n not in d
+                    for _, _, dims in ops for d in dims),
+                    f"--ranks {n} phase 32: a table-sized {leg} op: {ops}")
+        rows[leg] = {f"{s}x{b}": v for (s, b), v in tot.items()}
+    shutil.rmtree(root, ignore_errors=True)
+    out = {"group_bytes": rows, "s": time.perf_counter() - t0}
+    print(f"the sharded SparseTable's traffic on {n} NCCL ranks, one card "
+          f"each (phase 32; group bytes by table slots x batch, profiled): "
+          + json.dumps(out), flush=True)
+    return out
+
+
 def multi_card_main(torch, n: int) -> int:
     """``chip_smoke.py --ranks n``: phases 22-23 and the parameter server's
     phases 24-26 alone, on n cards of one machine, one rank each through
@@ -3821,6 +4129,7 @@ def multi_card_main(torch, n: int) -> int:
     multiproc_cards(n)
     mesh_cards(torch, n, " | ".join(sorted(set(cards[:n]))))
     consistency_cards(n)
+    tooling_cards(n)
     print("processes still running at the end, killed: "
           + json.dumps(stop_children()), flush=True)
     print(cards[0])
@@ -4877,15 +5186,23 @@ def main() -> int:
     torch.cuda.empty_cache()
     cons = consistency_phase(torch, card)
     phase_s["31"] = time.perf_counter() - t0
+    # --------- 32. the profiling tooling over K1-K4's paths
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    tooling = tooling_phase(torch, dev, card)
+    phase_s["32"] = time.perf_counter() - t0
     print("LM decoding (phase 19): " + json.dumps(decoding), flush=True)
-    print("seconds taken by phases 17-31: " + json.dumps(phase_s),
+    print("seconds taken by phases 17-32: " + json.dumps(phase_s),
           flush=True)
 
     kernels[0]["launches_by_path"] = dict(
         lrmlp=main_launches["gather_rows"], **wd_launches, **app_launches,
         lrmlp_group_ws1=grp["pair"]["gather_launches"],
         **{f"{k}_group_ws1": v for k, v in appg["k1"].items()},
-        **control["k1"], **cons["k1"])
+        **control["k1"], **cons["k1"],
+        wide_deep_spmd_profiled_window=tooling["32a_wide_deep"]["launches"][
+            "gather_rows"])
     for k in kernels[1:]:
         k["launches_by_path"] = {f"lm_{opt}": v[k["name"]]
                                  for opt, v in lm_paths.items()}
@@ -4906,6 +5223,8 @@ def main() -> int:
         k["launches_by_path"]["lm_example_dp_flash_resumed_group_ws1"] = \
             appg["flash_resumed"][k["name"]]
         k["launches_by_path"].update(cons["flash"][k["name"]])
+        k["launches_by_path"]["lm_example_profiled_window"] = \
+            tooling["32a_lm"]["launches"][k["name"]]
 
     print("processes still running at the end, killed: "
           + json.dumps(stop_children()), flush=True)

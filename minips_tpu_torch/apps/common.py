@@ -66,6 +66,11 @@ def app_main(name: str, default_cfg: Config, run, extra_flags=None,
                              "tables sharded over them (a card each, NCCL; "
                              "gloo ranks with --device cpu); 0: one "
                              "process, no process group")
+    parser.add_argument("--profile_dir", default=None,
+                        help="capture a torch.profiler trace of steps "
+                             "10-12 (TrainLoop's profile window) into "
+                             "this directory (python -m minips_tpu_torch."
+                             "utils.trace_analysis DIR reads it)")
     if extra_flags is not None:
         extra_flags(parser)
     args = parser.parse_args()
@@ -480,6 +485,13 @@ def shard_checkpointing(bus, nprocs: int, checkpoint_dir, rank: int):
         return common, save_hook
 
     return resume
+
+
+def loop_profile(args) -> dict:
+    """``TrainLoop``'s ``profile_dir`` from ``--profile_dir`` (nothing
+    when no directory is given)."""
+    log_dir = getattr(args, "profile_dir", None)
+    return {"profile_dir": log_dir} if log_dir else {}
 
 
 def add_push_comm_flag(parser) -> None:

@@ -65,7 +65,7 @@ import functools
 
 import torch
 
-from minips_tpu_torch.apps.common import app_main, run_cli
+from minips_tpu_torch.apps.common import app_main, loop_profile, run_cli
 from minips_tpu_torch.core.config import Config, TableConfig, TrainConfig
 from minips_tpu_torch.data import synthetic
 from minips_tpu_torch.data.loader import BatchIterator
@@ -365,7 +365,8 @@ def run(cfg: Config, args, metrics, group: Group = None) -> dict:
     loop = TrainLoop(lambda b: table.step_inplace(step, prep(b)), batches,
                      metrics=metrics, log_every=cfg.train.log_every,
                      batch_size=cfg.train.batch_size, checkpointer=ckpt,
-                     checkpoint_every=ckpt_every, step_offset=start_step)
+                     checkpoint_every=ckpt_every, step_offset=start_step,
+                     **loop_profile(args))
     # a completed run resumed again is a no-op, not an extra step
     remaining = max(cfg.train.num_iters - start_step, 0)
     losses = loop.run(remaining)
@@ -471,7 +472,7 @@ def _adam_train(cfg, args, metrics, params, loss_fn, summed, data_group,
     batches = BatchIterator(data, cfg.train.batch_size, seed=cfg.train.seed)
     loop = TrainLoop(do_step, batches, metrics=metrics,
                      log_every=cfg.train.log_every,
-                     batch_size=cfg.train.batch_size)
+                     batch_size=cfg.train.batch_size, **loop_profile(args))
     losses = loop.run(cfg.train.num_iters)
     metrics.log(final_loss=losses[-1], layout=layout, seq_len=seq_len,
                 tokens_per_sec=loop.timer.samples_per_sec * seq_len,

@@ -30,8 +30,9 @@ from __future__ import annotations
 import torch
 
 from minips_tpu_torch.apps.common import (app_main, global_batch,
-                                          holdout_split, score_holdout,
-                                          threaded_train, to_device)
+                                          holdout_split, loop_profile,
+                                          score_holdout, threaded_train,
+                                          to_device)
 from minips_tpu_torch.core.config import Config, TableConfig, TrainConfig
 from minips_tpu_torch.core.engine import Engine
 from minips_tpu_torch.data import synthetic
@@ -107,7 +108,8 @@ def _run_dense(cfg, args, metrics, data, dim, device, group) -> dict:
                      batches, metrics=metrics, log_every=cfg.train.log_every,
                      batch_size=cfg.train.batch_size, checkpointer=ck,
                      checkpoint_every=cfg.train.checkpoint_every,
-                     step_offset=start_step)
+                     step_offset=start_step,
+                     **loop_profile(args))
     losses = loop.run(max(cfg.train.num_iters - start_step, 0))
     params = table.pull()
     return score_holdout(
@@ -134,7 +136,8 @@ def _run_sparse(cfg, args, metrics, data, device, group) -> dict:
                             seed=cfg.train.seed)
     loop = TrainLoop(lambda b: ps(ps.shard_batch(b)), batches,
                      metrics=metrics, log_every=cfg.train.log_every,
-                     batch_size=cfg.train.batch_size)
+                     batch_size=cfg.train.batch_size,
+                     **loop_profile(args))
     losses = loop.run(cfg.train.num_iters)
 
     @torch.no_grad()

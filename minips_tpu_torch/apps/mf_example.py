@@ -38,7 +38,8 @@ import numpy as np
 import torch
 
 from minips_tpu_torch.apps.common import (app_main, global_batch,
-                                          holdout_split, threaded_train)
+                                          holdout_split, loop_profile,
+                                          threaded_train)
 from minips_tpu_torch.core.config import Config, TableConfig, TrainConfig
 from minips_tpu_torch.core.engine import Engine
 from minips_tpu_torch.data import synthetic
@@ -114,7 +115,8 @@ def run(cfg: Config, args, metrics, group: Group = None) -> dict:
                             seed=cfg.train.seed)
     loop = TrainLoop(lambda b: ps(ps.shard_batch(b)), batches,
                      metrics=metrics, log_every=cfg.train.log_every,
-                     batch_size=cfg.train.batch_size)
+                     batch_size=cfg.train.batch_size,
+                     **loop_profile(args))
     losses = loop.run(cfg.train.num_iters)
     metrics.log(final_loss=losses[-1],
                 samples_per_sec=loop.timer.samples_per_sec)

@@ -19,7 +19,8 @@ from __future__ import annotations
 import torch
 
 from minips_tpu_torch.apps.common import (app_main, global_batch,
-                                          threaded_train, to_device)
+                                          loop_profile, threaded_train,
+                                          to_device)
 from minips_tpu_torch.core.config import Config, TableConfig, TrainConfig
 from minips_tpu_torch.core.engine import Engine
 from minips_tpu_torch.data import synthetic
@@ -73,7 +74,8 @@ def run(cfg: Config, args, metrics, group: Group = None) -> dict:
     loop = TrainLoop(lambda b: table.step_inplace(
                          step, shard_batch(b, group, device)),
                      batches, metrics=metrics, log_every=cfg.train.log_every,
-                     batch_size=cfg.train.batch_size)
+                     batch_size=cfg.train.batch_size,
+                     **loop_profile(args))
     losses = loop.run(cfg.train.num_iters)
     with torch.no_grad():
         acc = float(mlp_model.accuracy(table.pull(), held))

@@ -46,7 +46,8 @@ from __future__ import annotations
 import torch
 
 from minips_tpu_torch.apps.common import (app_main, global_batch,
-                                          holdout_split, score_holdout)
+                                          holdout_split, loop_profile,
+                                          score_holdout)
 from minips_tpu_torch.core.config import Config, TableConfig, TrainConfig
 from minips_tpu_torch.data import synthetic
 from minips_tpu_torch.data.criteo import (log_transform, read_criteo,
@@ -169,7 +170,8 @@ def run(cfg: Config, args, metrics, group: Group = None) -> dict:
                             seed=cfg.train.seed)
     loop = TrainLoop(lambda b: ps(ps.shard_batch(b)), batches,
                      metrics=metrics, log_every=cfg.train.log_every,
-                     batch_size=cfg.train.batch_size)
+                     batch_size=cfg.train.batch_size,
+                     **loop_profile(args))
     losses = loop.run(cfg.train.num_iters)
     metrics.log(final_loss=losses[-1],
                 samples_per_sec=loop.timer.samples_per_sec)
@@ -210,7 +212,8 @@ def _run_streaming(cfg: Config, args, metrics, path: str, *, use_fm: bool,
                                     transform=xform, stats=stream_stats)
     loop = TrainLoop(lambda b: ps(ps.shard_batch(b)), batches,
                      metrics=metrics, log_every=cfg.train.log_every,
-                     batch_size=cfg.train.batch_size)
+                     batch_size=cfg.train.batch_size,
+                     **loop_profile(args))
     losses = loop.run(cfg.train.num_iters)
     metrics.log(final_loss=losses[-1] if losses else None,
                 samples_per_sec=loop.timer.samples_per_sec,

@@ -39,7 +39,8 @@ import numpy as np
 import torch
 
 from minips_tpu_torch.apps.common import (app_main, global_batch,
-                                          mean_losses, run_rate, to_device)
+                                          loop_profile, mean_losses,
+                                          run_rate, to_device)
 from minips_tpu_torch.core.config import Config, TableConfig, TrainConfig
 from minips_tpu_torch.data import synthetic
 from minips_tpu_torch.models import word2vec as w2v
@@ -133,7 +134,8 @@ def run(cfg: Config, args, metrics, group: Group = None) -> dict:
     batches = batch_gen(cfg, *pairs(cfg, args), cfg.train.seed)
     loop = TrainLoop(lambda b: ps(ps.shard_batch(b)), batches,
                      metrics=metrics, log_every=cfg.train.log_every,
-                     batch_size=cfg.train.batch_size)
+                     batch_size=cfg.train.batch_size,
+                     **loop_profile(args))
     losses = loop.run(cfg.train.num_iters)
     metrics.log(final_loss=losses[-1],
                 samples_per_sec=loop.timer.samples_per_sec)

@@ -30,6 +30,6 @@ modules are imported by every hot-path module (bus, tables, gate) and
 must cost one attribute lookup + one branch when quiet.
 
 A copy of ``minips_tpu/obs``, which imports no JAX; ``merge``'s
-``--xla`` interleave waits for ``utils/trace_analysis.py`` (ROADMAP.md
-queue 1 item 17) and raises until then.
+``--xla`` interleave reads ``torch.profiler``'s captures (and JAX's)
+through ``utils/trace_analysis.py``.
 """

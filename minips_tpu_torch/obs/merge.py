@@ -27,14 +27,14 @@ Three jobs:
    pair counts let the acceptance drill check one flow per remote
    owner.
 
-3. **XLA interleave** (``--xla <logdir>``; in this copy it raises
-   ``NotImplementedError`` until ``utils/trace_analysis.py`` is ported,
-   ROADMAP.md queue 1 item 17): the newest
-   ``*.trace.json.gz`` the profiler wrote (utils/trace_analysis.py) is
-   appended with its pids offset past the rank pids, so device compute
-   and wire activity share one timeline. XLA traces carry their own
-   epoch; they are shifted so their first event aligns with the first
-   wire event — coarse, but the intra-trace timing is what matters.
+3. **Device-trace interleave** (``--xla <logdir>``, the reference's
+   spelling): the newest ``*.trace.json.gz`` the profiler wrote
+   (``utils/profiling.py``, found by ``utils/trace_analysis.py``; a JAX
+   capture too) is appended with its pids offset past the rank pids, so
+   device compute and wire activity share one timeline. Profiler traces
+   carry their own epoch; they are shifted so their first event aligns
+   with the first wire event — coarse, but the intra-trace timing is
+   what matters.
 
 Exit 0 with a one-line JSON summary on stdout; nonzero when no rank
 trace was found or the output could not be written.
@@ -145,9 +145,41 @@ def _link_flows(events: list[dict]) -> tuple[int, dict[str, int]]:
 
 
 def _load_xla(logdir: str, t_base_us: float) -> list[dict]:
-    raise NotImplementedError(
-        "merge --xla is not ported yet (ROADMAP.md queue 1 item 17: "
-        "utils/trace_analysis.py, which finds the profiler's trace)")
+    from minips_tpu_torch.utils.trace_analysis import latest_trace_file
+
+    import gzip
+
+    path = latest_trace_file(logdir)
+    if path is None:
+        return []
+    with gzip.open(path, "rt") as f:
+        doc = json.load(f)
+    events = doc.get("traceEvents", [])
+    t0 = min((float(e["ts"]) for e in events
+              if "ts" in e and e.get("ph") != "M"), default=0.0)
+    # a torch.profiler trace also names a process by a string ("Spans");
+    # each such name takes the next integer past the numeric pids
+    def as_int(pid):
+        try:
+            return int(pid)
+        except (TypeError, ValueError):
+            return None
+
+    top = max((p for p in (as_int(e.get("pid")) for e in events)
+               if p is not None), default=-1)
+    named: dict = {}
+    out = []
+    for e in events:
+        e = dict(e)
+        if "pid" in e:
+            pid = as_int(e["pid"])
+            if pid is None:
+                pid = named.setdefault(e["pid"], top + 1 + len(named))
+            e["pid"] = XLA_PID_BASE + pid
+        if "ts" in e and e.get("ph") != "M":
+            e["ts"] = float(e["ts"]) - t0 + t_base_us
+        out.append(e)
+    return out
 
 
 def merge_traces(paths: list[str], *, xla_logdir: Optional[str] = None

@@ -7,8 +7,10 @@ checkpointing, and the consistency clock (for observability; on the pure
 SPMD path BSP is implicit in the collectives).
 
 The port of ``minips_tpu/train/loop.py``: the same loop, with the batch
-walked by the port's tree utilities. ``profile_dir`` waits for the
-profiler tooling (ROADMAP.md queue 1 item 17).
+walked by the port's tree utilities. ``profile_dir`` captures a
+``torch.profiler`` trace of the steps in ``profile_range``
+(``utils/profiling.py``); ``python -m minips_tpu_torch.utils.trace_analysis
+<profile_dir>`` turns it into an op table.
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ from __future__ import annotations
 from typing import Any, Callable, Iterable, Optional
 
 from minips_tpu_torch.utils.metrics import MetricsLogger
+from minips_tpu_torch.utils.profiling import StepWindowProfiler
 from minips_tpu_torch.utils.timing import StepTimer
 from minips_tpu_torch.utils.tree import tree_leaves
 
@@ -34,6 +37,7 @@ class TrainLoop:
         warmup_steps: int = 2,
         step_offset: int = 0,
         profile_dir: Optional[str] = None,
+        profile_range: tuple[int, int] = (10, 13),
         prefetch: Optional[Callable[[Any], None]] = None,
         extra_metrics: Optional[Callable[[], dict]] = None,
     ):
@@ -64,12 +68,18 @@ class TrainLoop:
         # restore() would pick an old-numbered-but-newer checkpoint.
         self.step_offset = step_offset
         self.timer = StepTimer(warmup_steps=warmup_steps)
+        self.profiler = None
         if profile_dir:
-            raise NotImplementedError(
-                "profile_dir is not ported yet (ROADMAP.md queue 1 item 17: "
-                "utils/profiling.py moves to torch.profiler)")
+            self.profiler = StepWindowProfiler(profile_dir, *profile_range)
 
     def run(self, num_iters: int) -> list[float]:
+        try:
+            return self._run(num_iters)
+        finally:
+            if self.profiler is not None:
+                self.profiler.close()  # an open trace must flush even on error
+
+    def _run(self, num_iters: int) -> list[float]:
         losses: list[float] = []
         # Resume continues the data stream, not just the step numbering: a
         # data source with iter_from (BatchIterator) is fast-forwarded to
@@ -87,6 +97,8 @@ class TrainLoop:
             it = iter(self.data)
         ahead = None  # batch t+1, already announced through prefetch
         for i in range(num_iters):
+            if self.profiler is not None:
+                self.profiler.on_step(i)
             if ahead is not None:
                 batch, ahead = ahead, None
             else:

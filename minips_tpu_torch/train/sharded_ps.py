@@ -6010,6 +6010,12 @@ class ShardedPSTrainer:
         deadline = time.monotonic() + timeout
         try:
             while True:
+                if self.rebalancer is not None:
+                    # a plan the coordinator issued after my adopt_now
+                    # above: adopt it here, or my rbA never goes out and
+                    # peers' fences (and their pulls parked on my stale
+                    # epoch) hold to their deadlines
+                    self.rebalancer.adopt_now()
                 with self._fin_cond:
                     live = peers - self.gossip.excluded
                     if live <= self._flushed and live <= self._acked:

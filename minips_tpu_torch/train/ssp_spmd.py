@@ -66,11 +66,13 @@ _WIRE = {"float32": 4, "bfloat16": 2, "int8": 1}
 
 class SyncPlane:
     """The cross-process sync of every CollectiveSSP-family trainer: the
-    world group of ``comm/cluster.py`` (``None`` on one process, where a
-    sum over one process is the identity and nothing is launched) and the
-    collectives on it: :meth:`allreduce_sum` (dense vector deltas, and the
-    row-sparse blocks of ``train/cssp_ps.py``), :meth:`allreduce_sum_ef`
-    (the compressed wire with its error-feedback hook) and
+    world group of ``comm/cluster.py`` (``None`` where no process group
+    exists, where a sum over one process is the identity and nothing is
+    launched; a group of one launches its collectives, as the JAX plane
+    compiles its all-reduce at one process) and the collectives on it:
+    :meth:`allreduce_sum` (dense vector deltas, and the row-sparse
+    blocks of ``train/cssp_ps.py``), :meth:`allreduce_sum_ef` (the
+    compressed wire with its error-feedback hook) and
     :meth:`allreduce_mean` (``opt_sync='avg'``).
 
     Each process holds one device, so ``n_local`` is 1: the JAX plane's
@@ -82,7 +84,7 @@ class SyncPlane:
     def __init__(self, device: DeviceLike = None):
         self.nprocs = cluster.process_count()
         self.rank = cluster.process_index()
-        self.group = dist.group.WORLD if self.nprocs > 1 else None
+        self.group = dist.group.WORLD if dist.is_initialized() else None
         self.backend = cluster.backend()
         self.device = resolve_device(device)
         self.n_local = 1
@@ -102,7 +104,9 @@ class SyncPlane:
         ``all_reduce`` on the float32 wire; on a compressed wire the
         reduce leg's ``all_to_all`` and the replicate leg's
         ``all_gather`` of the compressed codes (int8 adds each leg's
-        float32 block scales)."""
+        float32 block scales). ``bytes`` is each collective's result on
+        this process, as ``utils/comm_analysis.py`` counts what a
+        profiled sync launched."""
         be = self.backend
         if comm == "float32":
             return [{"op": "all_reduce", "backend": be,
@@ -112,17 +116,20 @@ class SyncPlane:
         n = self.nprocs
         padded = -(-int(length) // n) * n
         c = padded // n
+        nb = -(-c // BLOCK)
+        # int8 codes travel in whole blocks: each chunk is padded to nb
+        # blocks of BLOCK codes beside its nb float32 scales
+        codes = n * (nb * BLOCK if comm == "int8" else c) * _WIRE[comm]
         out = [{"op": "all_to_all", "backend": be, "dtype": comm,
-                "bytes": padded * _WIRE[comm]}]
+                "bytes": codes}]
         if comm == "int8":
             out.append({"op": "all_to_all", "backend": be,
-                        "dtype": "float32",
-                        "bytes": n * -(-c // BLOCK) * 4})
+                        "dtype": "float32", "bytes": n * nb * 4})
         out.append({"op": "all_gather", "backend": be, "dtype": comm,
-                    "bytes": c * _WIRE[comm]})
+                    "bytes": codes})
         if comm == "int8":
             out.append({"op": "all_gather", "backend": be,
-                        "dtype": "float32", "bytes": -(-c // BLOCK) * 4})
+                        "dtype": "float32", "bytes": n * nb * 4})
         return out
 
     def allreduce_sum(self, vec: torch.Tensor) -> torch.Tensor:

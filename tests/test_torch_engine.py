@@ -281,7 +281,7 @@ def test_log2_histogram_and_step_timer_are_copies():
     assert st.samples_per_sec >= 0.0
 
 
-def test_train_loop_matches_the_jax_loop():
+def test_train_loop_matches_the_jax_loop(tmp_path):
     from minips_tpu.data.loader import BatchIterator as JBatches
     from minips_tpu.train.loop import TrainLoop as JLoop
     from minips_tpu_torch.data.loader import BatchIterator as TBatches
@@ -298,5 +298,12 @@ def test_train_loop_matches_the_jax_loop():
     loop = TLoop(lambda b: torch.zeros(()), [{"x": torch.zeros(3, 2)}] * 2,
                  metrics=MetricsLogger(verbose=False))
     assert loop.run(5) == [0.0, 0.0]   # a finite source ends the loop
-    with pytest.raises(NotImplementedError, match="item 17"):
-        TLoop(step, [], profile_dir="/nonexistent")
+    # profile_dir traces the steps of profile_range (it refused until the
+    # profiler tooling was ported) and leaves the losses alone
+    from minips_tpu_torch.utils.trace_analysis import summarize
+
+    prof = TLoop(step, TBatches(data, 4, seed=1), step_offset=7,
+                 metrics=MetricsLogger(verbose=False),
+                 profile_dir=str(tmp_path / "prof"), profile_range=(1, 3))
+    assert prof.run(6) == want
+    assert summarize(str(tmp_path / "prof"))["source"] == "host"

@@ -175,11 +175,43 @@ def test_merge_and_report_identical(tmp_path, seed):
 
 
 def test_merge_xla_refuses_until_ported(tmp_path):
+    """``--xla`` interleaves a device capture (it refused until the
+    profiler tooling was ported): a JAX-shaped capture merges exactly as
+    the reference merges it, and the port's own ``torch.profiler``
+    capture (whose metadata names a process by a string) merges into a
+    trace that the blocked-time report still reads."""
+    import gzip
+
+    from minips_tpu_torch.utils.profiling import profile_trace
+
     _synthetic_rank_traces(tmp_path / "t", 3, ranks=(0, 1))
-    with pytest.raises(NotImplementedError, match="item 17"):
-        pmerge.merge_traces([str(tmp_path / "t")], xla_logdir=str(tmp_path))
-    with pytest.raises(NotImplementedError, match="item 17"):
-        pmerge.main([str(tmp_path / "t"), "--xla", str(tmp_path)])
+    os.makedirs(tmp_path / "xla" / "plugins")
+    with gzip.open(tmp_path / "xla" / "plugins" / "h.trace.json.gz",
+                   "wt") as f:
+        json.dump({"traceEvents": [
+            {"ph": "M", "pid": 2, "name": "process_name",
+             "args": {"name": "/device:TPU:0"}},
+            {"ph": "X", "pid": 2, "tid": 1, "name": "fusion.1",
+             "ts": 5000.0, "dur": 30.0},
+            {"ph": "X", "pid": 1, "tid": 1, "name": "Execute",
+             "ts": 4990.0, "dur": 50.0}]}, f)
+    p_doc, p_sum = pmerge.merge_traces([str(tmp_path / "t")],
+                                       xla_logdir=str(tmp_path / "xla"))
+    r_doc, r_sum = rmerge.merge_traces([str(tmp_path / "t")],
+                                       xla_logdir=str(tmp_path / "xla"))
+    assert p_doc == r_doc and p_sum == r_sum and p_sum["xla_events"] == 3
+    with profile_trace(str(tmp_path / "cap"), device="cpu"):
+        (torch.ones(64, 64) @ torch.ones(64, 64)).sum()
+    out = str(tmp_path / "merged.json")
+    assert pmerge.main([str(tmp_path / "t"), "--xla", str(tmp_path / "cap"),
+                        "-o", out]) == 0
+    with open(out) as f:
+        doc = json.load(f)
+    assert doc["otherData"]["xla_events"] > 0
+    assert all(isinstance(e["pid"], int) for e in doc["traceEvents"]
+               if "pid" in e)
+    assert set(preport.attribute(doc)) == set(preport.attribute(
+        pmerge.merge_traces([str(tmp_path / "t")])[0]))
     assert pmerge.main([str(tmp_path / "empty")]) == 1
     assert pmerge.XLA_PID_BASE == rmerge.XLA_PID_BASE
 

@@ -103,3 +103,61 @@ def test_mixed_fleet_keeps_the_bound_mid_migration():
     asserts (the bound, at least one migration, replicas equal)."""
     fleet(REF, ["port", "ref"])[
         "test_pulls_mid_migration_respect_the_staleness_bound"](1, 23)
+
+
+def test_finalize_adopts_a_plan_issued_after_it_began():
+    """A plan the coordinator issues after a peer entered ``finalize``
+    (past its one ``adopt_now``) is adopted in the finalize wait: the
+    peer's rbA releases the old owner's fence, and a pull routed to the
+    peer by the new epoch is served instead of parked on the peer's
+    stale epoch until the pull deadline."""
+    import threading
+    import time
+
+    from minips_tpu_torch.train.sharded_ps import (ShardedPSTrainer,
+                                                   ShardedTable)
+    from tests.torch_ref_drills import port_loopback_buses
+
+    n, rows = 2, 64
+    buses = port_loopback_buses(n)
+    tables = [ShardedTable("t", rows, 1, buses[i], i, n, updater="sgd",
+                           lr=1.0, pull_timeout=5.0) for i in range(n)]
+    trainers = [ShardedPSTrainer({"t": tables[i]}, buses[i], n,
+                                 staleness=1, gate_timeout=30.0,
+                                 rebalance="block=4,min_heat=1e18")
+                for i in range(n)]
+    errs: list = []
+    keys = np.arange(4, dtype=np.int64)  # block 0, home rank 0
+    try:
+        for r in range(n):
+            tables[r].push(keys, np.full((4, 1), r + 1.0, np.float32))
+        trainers[0].tick()
+
+        def run1():
+            try:
+                trainers[1].tick()
+                trainers[1].finalize(timeout=20.0)
+            except Exception as e:  # noqa: BLE001 - surfaced via errs
+                errs.append(repr(e))
+
+        rank1 = threading.Thread(target=run1)
+        rank1.start()
+        deadline = time.monotonic() + 10.0
+        while not trainers[1].rebalancer._stopped:
+            assert time.monotonic() < deadline, "rank 1 never finalized"
+            time.sleep(0.01)
+        time.sleep(0.3)  # rank 1 is past finalize's first adopt_now
+        trainers[0].rebalancer.issue_plan("t", 1, {0: 1})
+        got = tables[0].pull(keys)
+        np.testing.assert_array_equal(got, np.full((4, 1), -3.0))
+        trainers[0].finalize(timeout=20.0)
+        rank1.join(timeout=30.0)
+        assert not rank1.is_alive() and not errs, errs
+        assert tables[1].router.epoch == 1
+        assert tables[1].rb_stats["blocks_in"] == 1
+        assert tables[1].rebalance_settled()
+        np.testing.assert_array_equal(tables[0].pull_all(),
+                                      tables[1].pull_all())
+    finally:
+        for b in buses:
+            b.close()
