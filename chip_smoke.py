@@ -1008,10 +1008,14 @@ def device_time(torch, run, steps: int, step_ms: float) -> dict:
 
 def device_breakdown(torch, prof, steps: int, step_ms: float) -> dict:
     """``device_time``'s breakdown of a finished profile ``prof`` of
-    ``steps`` steps: the CUDA intervals of its events by name."""
+    ``steps`` steps: the CUDA intervals of its kernels, copies and fills
+    by name. The program's spans come back on the device too, as user
+    annotations that hold those kernels; like torch's own tables, it
+    leaves them out."""
     by_name: dict = {}
     for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
+        if (e.device_type == torch.autograd.DeviceType.CUDA
+                and not e.is_user_annotation):
             ms, calls = by_name.get(e.name, (0.0, 0))
             by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3,
                                calls + 1)

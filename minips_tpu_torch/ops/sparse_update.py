@@ -25,6 +25,8 @@ from __future__ import annotations
 
 import torch
 
+from minips_tpu_torch.utils.profiling import Annotation, count, tracing
+
 # Above this table size (elements), the dense-accumulate path's extra
 # table-shaped scratch buffer stops being worth it and sort-dedup takes over
 # (the same threshold, and so the same strategy per table, as JAX).
@@ -34,25 +36,31 @@ DENSE_ACCUM_MAX_ELEMS = 1 << 26
 def dedup_segment_sum(slots: torch.Tensor, grads: torch.Tensor):
     """Merge duplicate slots. Returns (rep_slots [B], summed [B, D], valid
     [B]) where only the first k entries (k = number of unique slots) are
-    valid; invalid entries have summed == 0 so scatter-adds are no-ops."""
+    valid; invalid entries have summed == 0 so scatter-adds are no-ops.
+    While a profiler runs, the span ``sparse.dedup`` covers it and the
+    counter ``sparse.rows`` gets k."""
     slots = slots.reshape(-1)
     n = slots.shape[0]
     if n == 0:
         return slots, grads.reshape(0, grads.shape[-1]), torch.zeros(
             0, dtype=torch.bool, device=slots.device)
-    grads = grads.reshape(n, -1)
-    order = torch.argsort(slots, stable=True)
-    s_sorted = slots[order]
-    g_sorted = grads[order]
-    first = torch.ones(n, dtype=torch.bool, device=slots.device)
-    first[1:] = s_sorted[1:] != s_sorted[:-1]
-    seg_id = torch.cumsum(first, 0) - 1
-    g_sum = torch.zeros_like(g_sorted).index_add_(0, seg_id, g_sorted)
-    rep = torch.zeros(n, dtype=slots.dtype, device=slots.device).scatter_reduce_(
-        0, seg_id, s_sorted, "amax")
-    valid = torch.arange(n, device=slots.device) <= seg_id[-1]
-    g_sum = torch.where(valid[:, None], g_sum, 0)
-    rep = torch.where(valid, rep, 0)
+    with Annotation("sparse.dedup", slots.device):
+        grads = grads.reshape(n, -1)
+        order = torch.argsort(slots, stable=True)
+        s_sorted = slots[order]
+        g_sorted = grads[order]
+        first = torch.ones(n, dtype=torch.bool, device=slots.device)
+        first[1:] = s_sorted[1:] != s_sorted[:-1]
+        seg_id = torch.cumsum(first, 0) - 1
+        g_sum = torch.zeros_like(g_sorted).index_add_(0, seg_id, g_sorted)
+        rep = torch.zeros(n, dtype=slots.dtype,
+                          device=slots.device).scatter_reduce_(
+            0, seg_id, s_sorted, "amax")
+        valid = torch.arange(n, device=slots.device) <= seg_id[-1]
+        g_sum = torch.where(valid[:, None], g_sum, 0)
+        rep = torch.where(valid, rep, 0)
+    if tracing():  # the segment count is one 0-d kernel, launched only then
+        count("sparse.rows", seg_id[-1] + 1)
     return rep, g_sum, valid
 
 
@@ -86,8 +94,9 @@ def row_adagrad(emb: torch.Tensor, accum: torch.Tensor, slots: torch.Tensor,
 
 def _scatter_dense(emb, slots, grads):
     flat = slots.reshape(-1)
-    return torch.zeros_like(emb).index_add_(
-        0, flat, grads.reshape(flat.shape[0], emb.shape[1]).to(emb.dtype))
+    with Annotation("sparse.scatter", emb.device):
+        return torch.zeros_like(emb).index_add_(
+            0, flat, grads.reshape(flat.shape[0], emb.shape[1]).to(emb.dtype))
 
 
 def _row_adagrad_dense(emb, accum, slots, grads, lr, eps):
@@ -101,6 +110,8 @@ def _row_adagrad_dense(emb, accum, slots, grads, lr, eps):
 
 def _row_adagrad_sorted(emb, accum, slots, grads, lr, eps):
     rep, g_sum, _ = dedup_segment_sum(slots, grads.to(emb.dtype))
+    if tracing():  # the entries each row scatter below is issued with
+        count("sparse.entries", rep.shape[0])
     g2 = g_sum * g_sum
     acc_rows = accum[rep] + g2
     accum.index_add_(0, rep, g2)  # in place: accum
@@ -153,6 +164,8 @@ def _row_adam_dense(emb, m, v, steps, slots, grads, lr, b1, b2, eps):
 
 def _row_adam_sorted(emb, m, v, steps, slots, grads, lr, b1, b2, eps):
     rep, g_sum, valid = dedup_segment_sum(slots, grads.to(emb.dtype))
+    if tracing():  # the entries each row scatter below is issued with
+        count("sparse.entries", rep.shape[0])
     vcol = valid[:, None]
     m_rows, v_rows = m[rep], v[rep]
     s_new = steps[rep] + valid.to(steps.dtype)

@@ -42,6 +42,7 @@ from minips_tpu_torch.parallel.mesh import (DeviceLike, Group, all_gather,
 from minips_tpu_torch.parallel.partition import RangePartitioner
 from minips_tpu_torch.tables.updaters import (LearningRate, Updater,
                                               make_updater)
+from minips_tpu_torch.utils.profiling import Annotation
 from minips_tpu_torch.utils.tree import PyTree, tree_leaves, tree_map, \
     tree_rebuild
 
@@ -296,6 +297,12 @@ class DenseTable:
         gradients in float32 (averaged under ``grad_reduce="mean"``,
         summed under ``"sum"``) before one update.
 
+        While a profiler runs, the step records the spans ``dense_step``
+        (the call), ``dense_step.pull``, ``dense_step.grad`` (``grad_fn``
+        and its casts, the microbatch loop under ``accum``) and
+        ``dense_step.update`` (the gradient's ravel to the return) of
+        ``utils/profiling.py``.
+
         The JAX function's ``batch_spec`` and ``jit`` have no
         counterpart: each rank is handed its own batch shard, and PyTorch
         runs eagerly.
@@ -315,10 +322,7 @@ class DenseTable:
                                            cast_floating(batch, compute_dtype))
                 return loss.float(), cast_floating(grads, torch.float32)
 
-        def grads_flat(params, batch):
-            if accum == 1:
-                loss, grads = grad_fn(params, batch)
-                return loss, ravel(grads)[0]
+        def accumulate(params, batch):
             for leaf in tree_leaves(batch):
                 if leaf.shape[0] % accum:
                     raise ValueError(f"batch dim {leaf.shape[0]} must "
@@ -337,18 +341,33 @@ class DenseTable:
                 return loss_sum, gsum
             return loss_sum / accum, gsum / accum
 
+        dev = self.device
+
         def step(params, opt_state, batch):
-            full = quantized_all_gather(params, group, comm)        # pull
-            loss, gflat = grads_flat(unravel(full[:n]), batch)
-            g = torch.zeros(padded, dtype=gflat.dtype, device=gflat.device)
-            g[:n] = gflat
-            g = quantized_psum_scatter(g, group, comm)              # push
-            if reduce == "mean":
-                g = g / shards
-            updates, opt_state = tx.update(self._clip(g), opt_state, params)
-            if group is not None:
-                loss = all_reduce_sum(loss.detach(), group) / shards
-            return params + updates, opt_state, loss
+            with Annotation("dense_step", dev):
+                with Annotation("dense_step.pull", dev):
+                    full = quantized_all_gather(params, group, comm)
+                    tree = unravel(full[:n])
+                with Annotation("dense_step.grad", dev):
+                    if accum == 1:
+                        loss, grads = grad_fn(tree, batch)
+                    else:
+                        loss, gflat = accumulate(tree, batch)
+                with Annotation("dense_step.update", dev):
+                    if accum == 1:
+                        gflat = ravel(grads)[0]
+                        del grads  # free the tree before the update's buffers
+                    g = torch.zeros(padded, dtype=gflat.dtype,
+                                    device=gflat.device)
+                    g[:n] = gflat
+                    g = quantized_psum_scatter(g, group, comm)      # push
+                    if reduce == "mean":
+                        g = g / shards
+                    updates, opt_state = tx.update(self._clip(g), opt_state,
+                                                   params)
+                    if group is not None:
+                        loss = all_reduce_sum(loss.detach(), group) / shards
+                    return params + updates, opt_state, loss
 
         return step
 

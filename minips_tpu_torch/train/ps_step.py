@@ -14,6 +14,11 @@ number of sparse tables. Per step:
 7. run the dense updater on the flat vector;
 8. run each sparse table's ``row_update`` on its touched slots.
 
+Each phase is a span of ``utils/profiling.py`` (``ps_step.route.<table>``,
+``ps_step.gather.<table>``, ``ps_step.loss_grad``, ``ps_step.dense_update``,
+``ps_step.sparse_update.<table>``, inside ``ps_step`` for the call), which
+records only while a profiler runs.
+
 User contract (as in JAX):
     loss_fn(dense_params, rows: dict[name, [B?, F?, dim]], batch) -> loss
     key_fns[name](batch) -> integer key tensor for that sparse table
@@ -58,6 +63,7 @@ from minips_tpu_torch.parallel.mesh import (DeviceLike, Group,
                                             same_device, shard_batch, world)
 from minips_tpu_torch.tables.dense import DenseTable, cast_floating
 from minips_tpu_torch.tables.sparse import SparseTable
+from minips_tpu_torch.utils.profiling import Annotation
 
 PyTree = Any
 
@@ -140,41 +146,46 @@ class PSTrainStep:
     # ------------------------------------------------------------------- step
     def step_fn_pure(self, state: dict, batch: dict):
         """One step: ``(state, batch) -> (new_state, loss)``."""
-        dense, cd, group = self.dense, self.compute_dtype, self.group
-        cbatch = cast_floating(batch, cd)
-
+        dense, cd, group, dev = (self.dense, self.compute_dtype, self.group,
+                                 self.device)
         routes, rows = {}, {}
         for name, t in self.sparse.items():
-            routes[name] = t.route(self.key_fns[name](batch))
-            # a fresh copy: the leaf the row gradients are taken against
-            rows[name] = t.gather(state[name][0],
-                                  routes[name]).requires_grad_()
+            with Annotation(f"ps_step.route.{name}", dev):
+                routes[name] = t.route(self.key_fns[name](batch))
+            with Annotation(f"ps_step.gather.{name}", dev):
+                # a fresh copy: the leaf the row gradients are taken against
+                rows[name] = t.gather(state[name][0],
+                                      routes[name]).requires_grad_()
 
-        leaves = list(rows.values())
-        dp = None
-        if dense is not None:
-            p_flat, opt = state["dense"]
-            full = quantized_all_gather(p_flat, group)            # pull
-            p_leaf = full.detach().requires_grad_()
-            leaves = [p_leaf] + leaves
-            dp = cast_floating(dense.unravel(p_leaf), cd)
-        loss = self.loss_fn(dp, cast_floating(rows, cd), cbatch).float()
-        grads = list(torch.autograd.grad(loss, leaves))
-        # the global batch's mean gradient is the mean of the ranks'
-        scale = self.grad_scale / self.world_size
-        if scale != 1.0:
-            grads = [g * scale for g in grads]
+        with Annotation("ps_step.loss_grad", dev):
+            leaves = list(rows.values())
+            dp = None
+            if dense is not None:
+                p_flat, opt = state["dense"]
+                full = quantized_all_gather(p_flat, group)        # pull
+                p_leaf = full.detach().requires_grad_()
+                leaves = [p_leaf] + leaves
+                dp = cast_floating(dense.unravel(p_leaf), cd)
+            loss = self.loss_fn(dp, cast_floating(rows, cd),
+                                cast_floating(batch, cd)).float()
+            grads = list(torch.autograd.grad(loss, leaves))
+            # the global batch's mean gradient is the mean of the ranks'
+            scale = self.grad_scale / self.world_size
+            if scale != 1.0:
+                grads = [g * scale for g in grads]
 
         new_state = dict(state)
         if dense is not None:
-            g_flat = quantized_psum_scatter(grads.pop(0), group)  # push
-            updates, opt = dense.tx.update(g_flat, opt, p_flat)
-            new_state["dense"] = (p_flat + updates, opt)
+            with Annotation("ps_step.dense_update", dev):
+                g_flat = quantized_psum_scatter(grads.pop(0), group)  # push
+                updates, opt = dense.tx.update(g_flat, opt, p_flat)
+                new_state["dense"] = (p_flat + updates, opt)
         for (name, t), g in zip(self.sparse.items(), grads):
-            emb, opt_rows = state[name]
-            new_state[name] = t.row_update(emb, opt_rows,
-                                           routes[name].local,
-                                           t.to_owners(routes[name], g))
+            with Annotation(f"ps_step.sparse_update.{name}", dev):
+                emb, opt_rows = state[name]
+                new_state[name] = t.row_update(emb, opt_rows,
+                                               routes[name].local,
+                                               t.to_owners(routes[name], g))
         loss = loss.detach()
         if group is not None:
             loss = all_reduce_sum(loss, group) / self.world_size
@@ -184,8 +195,9 @@ class PSTrainStep:
     def __call__(self, batch: dict) -> torch.Tensor:
         """Run one step against the tables' live state; returns the loss
         as a device scalar (reading it waits for the step)."""
-        new_state, loss = self.step_fn_pure(self._collect_state(), batch)
-        self._restore_state(new_state)
+        with Annotation("ps_step", self.device):
+            new_state, loss = self.step_fn_pure(self._collect_state(), batch)
+            self._restore_state(new_state)
         return loss
 
     def shard_batch(self, batch: PyTree) -> PyTree:

@@ -14,6 +14,39 @@ A capture is written as a gzipped Chrome trace,
 interleaves with the wire traces. Unlike the reference, a profiler that
 fails to start or to export raises: a silent no-op would leave the
 analysis reading an older capture.
+
+``Annotation`` is the program's span and ``count`` its counter. They
+record only while a profiler session runs (``profile_trace``,
+``StepWindowProfiler``, every app's ``--profile_dir``, or any
+``torch.profiler.profile``); otherwise a span costs a flag test and its
+host ``totals``, and a counter nothing (its callers test ``tracing()``).
+Where they are, by name:
+
+- ``train/ps_step.py`` ``PSTrainStep``: ``ps_step`` (one call),
+  ``ps_step.route.<table>`` (the keys and their route: the hash),
+  ``ps_step.gather.<table>`` (K1), ``ps_step.loss_grad`` (the dense pull,
+  the loss, ``autograd.grad``, the gradient scale), ``ps_step.dense_update``
+  (push, updater, ``p + updates``) and ``ps_step.sparse_update.<table>``
+  (``to_owners`` and ``row_update``);
+- ``ops/sparse_update.py``: ``sparse.dedup`` (argsort and segment sum of
+  a sort-dedup push), ``sparse.scatter`` (the dense-accumulate push's
+  scratch scatter), and the counters ``sparse.rows`` (a sort-dedup push's
+  distinct rows, from the dedup) and ``sparse.entries`` (the length of the
+  index its row scatters are issued with, counted where they are);
+- ``tables/dense.py`` ``make_step``'s step: ``dense_step`` (one call),
+  ``dense_step.pull``, ``dense_step.grad`` (``grad_fn`` with its casts; the
+  microbatch loop under ``accum``) and ``dense_step.update`` (from the
+  gradient's ravel to the return).
+
+A capture shows each span as a ``user_annotation`` on the host and a
+``gpu_user_annotation`` on the device. The registry keeps the newest
+``RING`` instances of each span (a CUDA event pair on the step's stream,
+or host clock readings off the card) and counter (an int, or a 0-d
+device tensor kept by reference); ``span_names``, ``span_ms`` and
+``counter_sum`` read it once the queue has drained, and ``reset`` empties
+it. A span's parent is whichever span's interval holds it. A span's time
+is the stream's window between its two events, idle time included, not
+the busy time of the kernels inside it.
 """
 
 from __future__ import annotations
@@ -23,9 +56,11 @@ import itertools
 import os
 import socket
 import time
+from collections import deque
 from typing import Iterator, Optional
 
 import torch
+import torch.autograd.profiler as _autograd_profiler
 
 from minips_tpu_torch.parallel.mesh import DeviceLike
 
@@ -122,26 +157,96 @@ class StepWindowProfiler:
             self.profile = self._open
 
 
+def tracing() -> bool:
+    """True while a ``torch.profiler`` session runs in this process: the
+    one switch of the program's spans and counters."""
+    return _autograd_profiler._is_profiler_enabled
+
+
+def _mark(device: DeviceLike):
+    """A CUDA event recorded on ``device``'s current stream, or the host
+    clock for any other device."""
+    if device is not None and torch.device(device).type == "cuda":
+        e = torch.cuda.Event(enable_timing=True)
+        e.record(torch.cuda.current_stream(device))
+        return e
+    return time.perf_counter()
+
+
 class Annotation:
-    """Named host-side span that also shows up in profiler traces via
-    ``torch.profiler.record_function``; accumulates wall time per name so
-    hot host phases (data loading, checkpoint snapshot) are quantified
-    even without a device trace."""
+    """The program's span: a named interval that, while a profiler runs,
+    enters ``torch.profiler.record_function`` and records its start and
+    end on ``device`` (CUDA events on the current stream, never waited
+    for; the host clock off the card) in the registry ``spans``. With or
+    without a profiler it adds its host wall time to ``totals``, so hot
+    host phases (data loading, checkpoint snapshot) are quantified even
+    without a device trace."""
 
+    RING = 1024
     totals: dict[str, float] = {}
+    spans: dict[str, deque] = {}
+    counters: dict[str, deque] = {}
 
-    def __init__(self, name: str):
+    def __init__(self, name: str, device: DeviceLike = None):
         self.name = name
+        self.device = device
 
     def __enter__(self):
         self._t0 = time.monotonic()
-        self._ann = torch.profiler.record_function(self.name)
-        self._ann.__enter__()
+        self._on = tracing()
+        if self._on:
+            self._ann = torch.profiler.record_function(self.name)
+            self._ann.__enter__()
+            self._start = _mark(self.device)
         return self
 
     def __exit__(self, *exc):
-        self._ann.__exit__(*exc)
+        if self._on:
+            end = _mark(self.device)
+            self._ann.__exit__(*exc)
+            Annotation.spans.setdefault(
+                self.name, deque(maxlen=self.RING)).append((self._start, end))
         Annotation.totals[self.name] = (
             Annotation.totals.get(self.name, 0.0)
             + time.monotonic() - self._t0)
         return False
+
+
+def count(name: str, value: int | torch.Tensor) -> None:
+    """Add ``value`` to counter ``name``. Callers call it only under
+    ``tracing()``, so that a counter records, and a value that takes a
+    kernel is computed, only while a profiler runs. A tensor (0-d) is
+    kept as it is and read by ``counter_sum``."""
+    Annotation.counters.setdefault(
+        name, deque(maxlen=Annotation.RING)).append(value)
+
+
+def span_names(prefix: str = "") -> list[str]:
+    """The recorded span names that begin with ``prefix``, sorted."""
+    return sorted(n for n in Annotation.spans if n.startswith(prefix))
+
+
+def span_ms(name: str) -> list[float]:
+    """Each recorded instance of span ``name``, oldest first, in ms: device
+    time between its CUDA events (waiting for the end event), or host
+    time off the card."""
+    out = []
+    for start, end in Annotation.spans.get(name, ()):
+        if isinstance(start, float):
+            out.append(1e3 * (end - start))
+        else:
+            end.synchronize()
+            out.append(start.elapsed_time(end))
+    return out
+
+
+def counter_sum(name: str) -> int:
+    """The sum of counter ``name``'s recorded values (0 if none)."""
+    return sum(int(v) for v in Annotation.counters.get(name, ()))
+
+
+def reset() -> None:
+    """Empty the registry: spans, counters and ``totals``."""
+    Annotation.spans.clear()
+    Annotation.counters.clear()
+    Annotation.totals.clear()
