@@ -289,6 +289,18 @@ raises on failure:
     ``--mode fused`` LR with the sharded checkpoint drill on the DCP
     backend, and ``convert_checkpoint`` native -> orbax -> native of a
     dense and a sparse table on the card, bit-identical.
+33. run right after phase 9: the row Adagrad kernel
+    (``csrc/row_adagrad.cu``) at the benchmark's CTR emb push, 131072 x 26
+    Zipf(1.05) slots into a 2^26 x 8 float32 table and its Adagrad state:
+    two pushes through ``row_adagrad`` (sort-dedup at this size) bitwise
+    equal to the plain version ``_row_adagrad_sorted_reference`` from the
+    same table, in PyTorch's deterministic mode (the dedup's segment sum
+    then sums in a fixed order), one launch a push; on one dedup of the
+    push, medians of 30 launches between CUDA events behind a sleep kernel
+    of the kernel (warm and with L2 flushed), the plain version's tail,
+    its two ``index_add_`` alone (``library_ms``) and whole pushes both
+    ways, beside the byte bound; then two steps of the LR + MLP pair at the
+    CTR cell's batch and table size, one launch a step.
 
 Before it prints its result, and on every way out, the script stops and
 reaps every process it started that still runs: the launcher's fork
@@ -364,7 +376,15 @@ LSE_TOL = 1e-4  # lse is float32 on both sides
 # peak rates of an H100 SXM (NVIDIA data sheet): dense bf16 tensor cores
 BF16_FLOPS = 989e12
 DESIGN = {"gather_rows": "simt-vec", "flash_forward": "wgmma",
-          "flash_bwd_dq": "wgmma", "flash_bwd_dkv": "wgmma"}
+          "flash_bwd_dq": "wgmma", "flash_bwd_dkv": "wgmma",
+          "row_adagrad": "simt-vec"}
+# phase 33: the benchmark's CTR cell, as its configuration and traffic
+# files define it (2^26 x 8 emb rows under row Adagrad, B 131072 x 26
+# fields of Zipf ids)
+CTR_CONFIG = os.path.join(REPO, "benchmark", "configs",
+                          "criteo1tb-lrmlp.json")
+CTR_TRAFFIC = os.path.join(REPO, "benchmark", "traffic",
+                           "zipf-b131072.json")
 # the bf16 K2, K3 and K4 kernels, each of which must hold HGMMA
 # instructions; those at head dims up to 64 (the LM's) must not spill
 WGMMA_KERNELS = ("flash_fwd_wgmma_kernel<bf16,64>",
@@ -977,6 +997,120 @@ def flash_timings(torch, tfa, B, T, H, Hk, D, mem_bw) -> dict:
                       "live_pairs": pairs, "flops": flops[name],
                       "bytes": nbytes[name]}}
     return rows
+
+
+def ctr_ids(torch, gen, dev, cfg: dict, mix: dict):
+    """[batch, fields] ids as the CTR cell's traffic draws them
+    (``benchmark/traffic.py``): field f's Zipf rank among its ids, by the
+    inverse transform of the envelope x^-s on [1, count + 1), plus the ids
+    of the fields before it."""
+    counts = torch.tensor(cfg["field_ids"], dtype=torch.float64, device=dev)
+    offsets = torch.cumsum(counts, 0).to(torch.int64) - counts.to(torch.int64)
+    u = torch.rand((mix["batch"], counts.numel()), generator=gen, device=dev,
+                   dtype=torch.float64)
+    a = 1.0 - mix["zipf_exponent"]
+    x = torch.pow(1.0 + u * (torch.pow(counts + 1.0, a) - 1.0), 1.0 / a)
+    ranks = torch.minimum(x.floor().to(torch.int64) - 1,
+                          counts.to(torch.int64) - 1).clamp(min=0)
+    return ranks + offsets
+
+
+def row_adagrad_phase(torch, dev, mem_bw) -> dict:
+    """Phase 33: the row Adagrad kernel at the CTR cell's emb push. Its
+    kernel row for the JSON result, launches by path included."""
+    from minips_tpu_torch.apps.lrmlp import build_lrmlp
+    from minips_tpu_torch.ops import sparse_update as su
+    from minips_tpu_torch.tables.sparse import hash_to_slots
+
+    with open(CTR_CONFIG) as f:
+        cfg = json.load(f)
+    with open(CTR_TRAFFIC) as f:
+        mix = json.load(f)
+    S, D = cfg["num_slots"], cfg["emb_dim"]
+    lr, eps = cfg["table_updater"]["lr"], cfg["table_updater"]["eps"]
+    gen = torch.Generator(dev).manual_seed(21)
+    slots = hash_to_slots(ctr_ids(torch, gen, dev, cfg, mix), S,
+                          cfg["salts"]["emb"]).reshape(-1)
+    n = slots.numel()
+    grads = torch.randn((n, D), generator=gen, device=dev)
+    emb = 0.01 * torch.randn((S, D), generator=gen, device=dev)
+    accum = torch.full((S, D), 0.1, device=dev)
+    ref = emb.clone(), accum.clone()
+    # the dedup's segment sum in a fixed order, so that both sides sum each
+    # row's gradient alike; the row update itself has no atomics left
+    before = su.row_adagrad_apply.launches
+    torch.use_deterministic_algorithms(True)
+    try:
+        for _ in range(2):
+            su.row_adagrad(emb, accum, slots, grads, lr, eps)
+            su._row_adagrad_sorted_reference(*ref, slots, grads, lr, eps)
+        torch.cuda.synchronize()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    launches = su.row_adagrad_apply.launches - before
+    check(launches == 2, f"row_adagrad launched {launches} times in 2 pushes")
+    check(torch.equal(emb, ref[0]) and torch.equal(accum, ref[1]),
+          "row_adagrad: emb or accum differs from the plain version's bits")
+    del ref
+
+    rep, g_sum, _, k_dev = su._dedup_segment_sum(slots, grads)
+    k = int(k_dev)
+    g2 = g_sum * g_sum
+    step = -lr * g_sum / ((accum[rep] + g2).sqrt() + eps)
+    nbytes = k * (slots.element_size() + 5 * 4 * D)
+    flush = torch.empty(GATHER_COLD_FLUSH_BYTES, dtype=torch.uint8,
+                        device=dev)
+
+    def kernel():
+        su.row_adagrad_apply(emb, accum, rep, g_sum, k_dev, lr, eps)
+
+    def plain():  # _row_adagrad_sorted_reference after its dedup
+        acc_rows = accum[rep] + g_sum * g_sum
+        accum.index_add_(0, rep, g_sum * g_sum)
+        emb.index_add_(0, rep, -lr * g_sum / (acc_rows.sqrt() + eps))
+
+    def library():  # the plain version's two row scatters alone
+        accum.index_add_(0, rep, g2)
+        emb.index_add_(0, rep, step)
+
+    row = {
+        "name": "row_adagrad", "route": "cuda",
+        "source": "minips_tpu_torch/csrc/row_adagrad.cu",
+        "replaces": "none: the JAX package leaves this update to XLA's "
+                    "scatter",
+        "launches": launches, "max_abs_err": 0.0, "N": n, "S": S, "D": D,
+        "distinct_rows": k, "bytes": nbytes,
+        "ms": time_ms(torch, kernel),
+        "cold_ms": time_ms(torch, kernel, flush.zero_),
+        "plain_ms": time_ms(torch, plain),
+        "plain_cold_ms": time_ms(torch, plain, flush.zero_),
+        "library_ms": time_ms(torch, library),
+        "push_ms": time_ms(torch, lambda: su.row_adagrad(
+            emb, accum, slots, grads, lr, eps)),
+        "plain_push_ms": time_ms(torch, lambda: (
+            su._row_adagrad_sorted_reference(emb, accum, slots, grads,
+                                             lr, eps))),
+        "bound_ms": 1e3 * nbytes / mem_bw, "bound_by": "bytes",
+        "design": DESIGN["row_adagrad"],
+    }
+    row["bound_share_cold"] = row["bound_ms"] / row["cold_ms"]
+    del emb, accum, slots, grads, rep, g_sum, g2, step, flush
+
+    # the CTR cell's own path: the pair at its batch and table size, whose
+    # MLP step pushes emb (sort-dedup) and LR step wide (dense-accumulate)
+    pair = build_lrmlp(mix["batch"], dev, seed=0, num_slots=S)
+    before = su.row_adagrad_apply.launches
+    losses = [float(x) for pair_l in run_pair_steps(pair, 2)
+              for x in pair_l]
+    torch.cuda.synchronize()
+    ctr = su.row_adagrad_apply.launches - before
+    check(all(math.isfinite(x) for x in losses), f"CTR losses {losses}")
+    check(ctr == 2, f"row_adagrad launched {ctr} times in 2 CTR steps")
+    row["launches_by_path"] = {"ctr_push_x2": launches, "ctr_pair_steps_x2":
+                               ctr}
+    del pair
+    torch.cuda.empty_cache()
+    return row
 
 
 def update_peak_gb(torch, table) -> float:
@@ -4087,7 +4221,7 @@ def multi_card_main(torch, n: int) -> int:
     for line in cards[:n]:
         print(f"card: {line}", flush=True)
     t0 = time.perf_counter()
-    _build.build_all(["gather_rows", "flash_attn"])
+    _build.build_all(["gather_rows", "flash_attn", "row_adagrad"])
     print(f"build: {time.perf_counter() - t0:.2f} s", flush=True)
     t0 = time.perf_counter()
     par = run_ranks(parallel_phases, n,
@@ -4190,7 +4324,7 @@ def main() -> int:
 
     # ----------------------------------------------------------- 2. build
     t0 = time.perf_counter()
-    logs = _build.build_all(["gather_rows", "flash_attn"])
+    logs = _build.build_all(["gather_rows", "flash_attn", "row_adagrad"])
     build_s = time.perf_counter() - t0
     print(f"build: {build_s:.2f} s for {sorted(logs) or 'cached'}",
           flush=True)
@@ -4653,6 +4787,11 @@ def main() -> int:
             **row, "design": DESIGN[name]})
         print(f"{name} at the LM's shape: " + json.dumps(kernels[-1]),
               flush=True)
+    # ----------------------------- 33. the row Adagrad kernel at the CTR push
+    t0 = time.perf_counter()
+    row_adagrad = row_adagrad_phase(torch, dev, mem_bw)
+    print(f"row_adagrad at the CTR push ({time.perf_counter() - t0:.1f} s): "
+          + json.dumps(row_adagrad), flush=True)
     # ------------------------------------------ 10. LM low-precision state
     from minips_tpu_torch.tables import updaters as tupd
 
@@ -5229,6 +5368,8 @@ def main() -> int:
         k["launches_by_path"].update(cons["flash"][k["name"]])
         k["launches_by_path"]["lm_example_profiled_window"] = \
             tooling["32a_lm"]["launches"][k["name"]]
+
+    kernels.append(row_adagrad)  # K2-K4 above are kernels[1:4]
 
     print("processes still running at the end, killed: "
           + json.dumps(stop_children()), flush=True)

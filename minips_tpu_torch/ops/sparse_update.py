@@ -16,12 +16,24 @@ On the card ``index_add_`` sums duplicate slots with atomics in no fixed
 order, so a row touched many times can differ from the CPU in the last
 bits; that, not the algorithm, is the on-card tolerance.
 
+Sort-dedup Adagrad on CUDA tensors launches a hand-written kernel
+(``minips_tpu_torch/csrc/row_adagrad.cu``, :func:`row_adagrad_apply`) over
+the k distinct rows only, with k left on the card, and no atomics; it does
+the plain version's float32 arithmetic in the same order, so its result is
+bitwise the plain version's on the same dedup. CPU tensors take the plain
+version, :func:`_row_adagrad_sorted_reference`, which the CPU tests hold
+against the JAX package and ``chip_smoke.py`` holds the kernel against.
+There is no fallback and no switch: a CUDA tensor launches or raises.
+
 A push may touch no row at all: an owner whose shard none of a push's keys
 hash into (``tables/sparse.py`` over a process group) gets zero slots, and
 each update is then the identity.
 """
 
 from __future__ import annotations
+
+import ctypes
+import functools
 
 import torch
 
@@ -39,11 +51,19 @@ def dedup_segment_sum(slots: torch.Tensor, grads: torch.Tensor):
     valid; invalid entries have summed == 0 so scatter-adds are no-ops.
     While a profiler runs, the span ``sparse.dedup`` covers it and the
     counter ``sparse.rows`` gets k."""
+    return _dedup_segment_sum(slots, grads)[:3]
+
+
+def _dedup_segment_sum(slots, grads):
+    """:func:`dedup_segment_sum`'s three results and k, the number of
+    unique slots, as a 0-d int64 tensor on the slots' device: the row
+    Adagrad kernel reads it there, so the host never waits for it."""
     slots = slots.reshape(-1)
     n = slots.shape[0]
     if n == 0:
         return slots, grads.reshape(0, grads.shape[-1]), torch.zeros(
-            0, dtype=torch.bool, device=slots.device)
+            0, dtype=torch.bool, device=slots.device), torch.zeros(
+            (), dtype=torch.int64, device=slots.device)
     with Annotation("sparse.dedup", slots.device):
         grads = grads.reshape(n, -1)
         order = torch.argsort(slots, stable=True)
@@ -56,12 +76,13 @@ def dedup_segment_sum(slots: torch.Tensor, grads: torch.Tensor):
         rep = torch.zeros(n, dtype=slots.dtype,
                           device=slots.device).scatter_reduce_(
             0, seg_id, s_sorted, "amax")
-        valid = torch.arange(n, device=slots.device) <= seg_id[-1]
+        k = seg_id[-1] + 1
+        valid = torch.arange(n, device=slots.device) < k
         g_sum = torch.where(valid[:, None], g_sum, 0)
         rep = torch.where(valid, rep, 0)
-    if tracing():  # the segment count is one 0-d kernel, launched only then
-        count("sparse.rows", seg_id[-1] + 1)
-    return rep, g_sum, valid
+    if tracing():
+        count("sparse.rows", k)
+    return rep, g_sum, valid, k
 
 
 def row_sgd(emb: torch.Tensor, slots: torch.Tensor, grads: torch.Tensor,
@@ -109,6 +130,25 @@ def _row_adagrad_dense(emb, accum, slots, grads, lr, eps):
 
 
 def _row_adagrad_sorted(emb, accum, slots, grads, lr, eps):
+    if emb.device.type == "cpu":
+        return _row_adagrad_sorted_reference(emb, accum, slots, grads, lr,
+                                             eps)
+    return _row_adagrad_sorted_kernel(emb, accum, slots, grads, lr, eps)
+
+
+def _row_adagrad_sorted_kernel(emb, accum, slots, grads, lr, eps):
+    """The dedup, then the kernel over its k distinct rows."""
+    rep, g_sum, _, k = _dedup_segment_sum(slots, grads.to(emb.dtype))
+    if tracing():  # the rows the kernel writes: k, a 0-d tensor
+        count("sparse.entries", k)
+    row_adagrad_apply(emb, accum, rep, g_sum, k, lr, eps)
+    return emb, accum
+
+
+def _row_adagrad_sorted_reference(emb, accum, slots, grads, lr, eps):
+    """The plain version of sort-dedup Adagrad: a gather and two row
+    scatters issued with all n entries of the dedup, whose invalid tail
+    adds exact zeros onto row 0."""
     rep, g_sum, _ = dedup_segment_sum(slots, grads.to(emb.dtype))
     if tracing():  # the entries each row scatter below is issued with
         count("sparse.entries", rep.shape[0])
@@ -118,6 +158,76 @@ def _row_adagrad_sorted(emb, accum, slots, grads, lr, eps):
     step = -lr * g_sum / (acc_rows.sqrt() + eps)
     emb.index_add_(0, rep, step)  # in place: emb
     return emb, accum
+
+
+@functools.lru_cache(maxsize=None)
+def _launcher():
+    from minips_tpu_torch.ops import _build
+
+    fn = _build.load("row_adagrad").row_adagrad_launch
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong,
+                   ctypes.c_float, ctypes.c_float, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+_INDEX_DTYPES = (torch.int32, torch.int64)
+
+
+def row_adagrad_apply(emb: torch.Tensor, accum: torch.Tensor,
+                      rows: torch.Tensor, g_sum: torch.Tensor,
+                      k: torch.Tensor, lr: float, eps: float) -> None:
+    """Row Adagrad, in place, on the first k entries of a sort-dedup push:
+    for ``i < k``, ``r = rows[i]``, ``g = g_sum[i]``: ``accum[r] += g*g``,
+    then ``emb[r] += -lr*g / (sqrt(accum[r]) + eps)``.
+
+    Launches the CUDA kernel and counts the launch in
+    ``row_adagrad_apply.launches``. emb, accum: ``[S, D]`` float32; rows:
+    ``[n]`` int32 or int64, whose first k entries are distinct; g_sum:
+    ``[n, D]`` float32; k: a 0-d int64 tensor, which only the card reads.
+    All contiguous and on one CUDA device; anything else raises (a CPU
+    push takes :func:`_row_adagrad_sorted_reference` instead)."""
+    if emb.dim() != 2 or accum.shape != emb.shape:
+        raise ValueError(f"emb and accum must be one [S, D] shape, got "
+                         f"{tuple(emb.shape)} and {tuple(accum.shape)}")
+    for name, t in (("emb", emb), ("accum", accum), ("g_sum", g_sum)):
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32, got {t.dtype}")
+    if rows.dtype not in _INDEX_DTYPES:
+        raise TypeError(f"rows must be int32 or int64, got {rows.dtype}")
+    if k.dtype != torch.int64 or k.dim() != 0:
+        raise TypeError(f"k must be a 0-d int64 tensor, got {k.dtype} of "
+                        f"shape {tuple(k.shape)}")
+    if rows.dim() != 1 or g_sum.shape != (rows.shape[0], emb.shape[1]):
+        raise ValueError(f"rows must be [n] and g_sum [n, {emb.shape[1]}], "
+                         f"got {tuple(rows.shape)} and "
+                         f"{tuple(g_sum.shape)}")
+    n = rows.shape[0]
+    devices = {t.device for t in (emb, accum, rows, g_sum, k)}
+    if len(devices) != 1:
+        raise ValueError(f"tensors on more than one device: {devices}")
+    if not all(t.is_contiguous() for t in (emb, accum, rows, g_sum)):
+        raise ValueError("emb, accum, rows and g_sum must be contiguous")
+    if emb.device.type != "cuda":
+        raise ValueError(f"no row Adagrad kernel for device {emb.device}")
+    if emb.shape[0] == 0:
+        raise ValueError("cannot update an empty table")
+    if n == 0 or emb.shape[1] == 0:
+        return
+    with torch.cuda.device(emb.device):
+        rc = _launcher()(emb.data_ptr(), accum.data_ptr(), rows.data_ptr(),
+                         rows.element_size(), g_sum.data_ptr(), k.data_ptr(),
+                         n, emb.shape[0], emb.shape[1], lr, eps,
+                         torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"row_adagrad kernel launch failed: CUDA error "
+                           f"{rc}")
+    row_adagrad_apply.launches += 1
+
+
+row_adagrad_apply.launches = 0  # kernel launches, for proof a path used it
 
 
 def row_adam(emb: torch.Tensor, m: torch.Tensor, v: torch.Tensor,

@@ -79,6 +79,47 @@ def test_row_adagrad_two_pushes(data, prefer_dense):
     _close(ta.numpy(), ja)
 
 
+# the sort-dedup path's edges: k = 1 (on row 0 too, where the invalid
+# tail's zero deltas land), row 0 among many rows, no duplicate at all
+SORTED_EDGES = {
+    "one_slot": lambda s: np.full_like(s, 5),
+    "one_slot_zero": lambda s: np.zeros_like(s),
+    "slot_zero_among_rows": lambda s: np.where(np.arange(s.size) % 4 == 0,
+                                               0, s),
+    "all_distinct": lambda s: np.arange(s.size, dtype=s.dtype)[::-1].copy(),
+}
+
+
+@pytest.mark.parametrize("case", sorted(SORTED_EDGES))
+def test_sorted_adagrad_edges_against_jax(data, case):
+    slots = SORTED_EDGES[case](data["slots"])
+    je, ja = jnp.asarray(data["emb"]), jnp.asarray(data["accum"])
+    te, ta = _t(data["emb"]), _t(data["accum"])
+    for g in (data["grads"], data["grads2"]):
+        je, ja = jsu.row_adagrad(je, ja, jnp.asarray(slots), jnp.asarray(g),
+                                 0.05, prefer_dense=False)
+        te, ta = tsu.row_adagrad(te, ta, _t(slots), _t(g), 0.05,
+                                 prefer_dense=False)
+    _close(te.numpy(), je)
+    _close(ta.numpy(), ja)
+    # rows no key touched are left bit for bit as they were
+    untouched = np.setdiff1d(np.arange(S), slots)
+    np.testing.assert_array_equal(te.numpy()[untouched],
+                                  data["emb"][untouched])
+    np.testing.assert_array_equal(ta.numpy()[untouched],
+                                  data["accum"][untouched])
+
+
+def test_sorted_adagrad_empty_push_is_identity(data):
+    # an owner whose shard gets no key; JAX's dedup cannot reshape an empty
+    # push, so the port is held to the identity
+    te, ta = tsu.row_adagrad(_t(data["emb"]), _t(data["accum"]),
+                             torch.zeros(0, dtype=torch.int32),
+                             torch.zeros(0, D), 0.05, prefer_dense=False)
+    np.testing.assert_array_equal(te.numpy(), data["emb"])
+    np.testing.assert_array_equal(ta.numpy(), data["accum"])
+
+
 @pytest.mark.parametrize("prefer_dense", [True, False])
 def test_row_adam_per_row_steps(data, prefer_dense):
     zeros = np.zeros((S, D), np.float32)
