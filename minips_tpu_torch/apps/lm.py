@@ -2,9 +2,9 @@
 ``bench.py:bench_lm``, as ``apps/lrmlp.py`` is for ``bench_lrmlp``.
 
 ``build_lm`` builds one ``DenseTable`` named ``"lm"`` holding the whole LM
-(Adam, lr 1e-3, float32 master weights; the optimizer state in float32,
-bfloat16 or blockwise int8 by ``opt_state``, as ``bench_lm``'s
-``--lm-opt-state``) and its fused step
+(Adam at ``lr``, 1e-3 by default, float32 master weights; the optimizer
+state in float32, bfloat16 or blockwise int8 by ``opt_state``, as
+``bench_lm``'s ``--lm-opt-state``) and its fused step
 ``table.make_step(grad_fn, compute_dtype=...)`` with flash attention and
 the chunked tied head. Its defaults are ``bench_lm``'s: 8 blocks of width
 2048 with 32 heads of 64, vocab 2^14, a learned positional table of
@@ -17,6 +17,16 @@ step's pull and push (``"float32"``, ``"bfloat16"`` or ``"int8"``), as
 given a process group, the table is range-sharded over it and each rank
 steps on its shard of the batch. ``chip_smoke.py`` and the tests share
 this function; it is not a benchmark.
+
+Given a published ``config`` (HF's ``lfm2_moe`` keys, as
+``benchmark/configs/lfm2-8b-a1b.json`` states them), ``build_lm`` builds
+LFM2 in the same table with the same step: gated short-conv and GQA
+layers in the configuration's ``layer_types``, SwiGLU FFNs in the leading
+``num_dense_layers`` and the dropless top-k sigmoid MoE
+(``parallel/moe.py``) after them, holding ``num_experts`` of the router's
+``published_num_experts`` from ``expert_offset`` (one card's share of an
+expert-parallel deployment), the head tied to the embedding
+(``models/transformer.py`` ``lfm2_init``, ``lfm2_grad_fn``).
 """
 
 from __future__ import annotations
@@ -43,7 +53,8 @@ def build_lm(batch: int = 16, seq: int = 1024, *, dim: int = 2048,
              compute_dtype: Optional[torch.dtype] = torch.bfloat16,
              kv_heads: Optional[int] = None, rope: bool = False,
              opt_state: str = "f32", comm: str = "float32",
-             group: Group = None):
+             group: Group = None, config: Optional[dict] = None,
+             lr: float = 1e-3):
     """The LM and its step at batch ``batch`` and sequence ``seq``, with
     ``dim // 64`` heads as in ``bench_lm``. ``opt_state`` is ``"f32"``
     (``adam``), ``"bf16"`` (``adam_bf16``) or ``"int8"`` (``adam8``).
@@ -57,22 +68,37 @@ def build_lm(batch: int = 16, seq: int = 1024, *, dim: int = 2048,
     shard's under a group). ``seed`` also seeds the weights (a
     ``torch.Generator`` on the device). Under a group, ``batch`` is the
     global batch, which must divide by the group size, and ``batches``
-    hold this rank's rows."""
+    hold this rank's rows. A ``config`` with ``model_type``
+    ``"lfm2_moe"`` builds that model at its own sizes (``dim``,
+    ``depth``, ``vocab``, ``kv_heads`` and ``rope`` then play no part)."""
     if opt_state not in OPT_STATE_UPDATERS:
         raise ValueError(f"opt_state must be one of "
                          f"{sorted(OPT_STATE_UPDATERS)}, got {opt_state!r}")
     device = resolve_device(device)
-    heads = dim // 64
     gen = torch.Generator(device=device).manual_seed(seed)
-    params = tfm.init(gen, vocab=vocab, dim=dim, heads=heads, depth=depth,
-                      max_len=seq, kv_heads=kv_heads, rope=rope,
-                      device=device)
+    if config is None:
+        heads = dim // 64
+        params = tfm.init(gen, vocab=vocab, dim=dim, heads=heads,
+                          depth=depth, max_len=seq, kv_heads=kv_heads,
+                          rope=rope, device=device)
+        grad_fn = functools.partial(tfm.grad_fn, heads=heads,
+                                    attn_impl="flash", remat=remat,
+                                    head_chunk=head_chunk)
+    elif config.get("model_type") == "lfm2_moe":
+        heads, vocab = config["num_attention_heads"], config["vocab_size"]
+        params = tfm.lfm2_init(gen, config, device)
+        grad_fn = functools.partial(
+            tfm.lfm2_grad_fn, config=config,
+            expert_bias=tfm.lfm2_expert_bias(config, device),
+            compute_dtype=compute_dtype or torch.float32,
+            attn_impl="flash", remat=remat, head_chunk=head_chunk)
+    else:
+        raise ValueError(f"no model for model_type "
+                         f"{config.get('model_type')!r} (known: lfm2_moe)")
     table = DenseTable(params, name="lm",
-                       updater=OPT_STATE_UPDATERS[opt_state], lr=1e-3,
+                       updater=OPT_STATE_UPDATERS[opt_state], lr=lr,
                        device=device, group=group)
     del params  # the table holds the only copy, as one flat vector
-    grad_fn = functools.partial(tfm.grad_fn, heads=heads, attn_impl="flash",
-                                remat=remat, head_chunk=head_chunk)
     step = table.make_step(grad_fn, compute_dtype=compute_dtype, comm=comm)
     rank, n = world(group)
     if batch % n:

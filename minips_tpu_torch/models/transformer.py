@@ -1,5 +1,22 @@
 """Decoder-only transformer LM — the port of ``minips_tpu/models/transformer.py``
-(the single-program path and the one-device MoE LM).
+(the single-program path and the one-device MoE LM) — and LFM2.
+
+**LFM2** (``lfm2_init``, ``lfm2_hidden``, ``lfm2_apply``, ``lfm2_loss``,
+``lfm2_grad_fn``; HF's ``lfm2_moe`` equations, built from the published
+configuration by ``apps/lm.py``'s ``build_lm``): layers of two kinds in
+the configuration's ``layer_types``, each ``h += mixer(RMSNorm(h))`` then
+``h += ffn(RMSNorm(h))`` on a float32 residual stream. The mixer is the
+gated short conv (``_lfm2_conv``: ``[B | C | x] = in_proj(a)``, a
+depthwise causal conv of width ``conv_L_cache`` over ``B ⊙ x`` as shifted
+multiply-adds, ``out_proj(C ⊙ conv)``; the span ``conv``) or GQA
+attention with RMSNorm over the head dim on q and k and RoPE at
+``rope_theta`` (``_lfm2_attn``, through :func:`_attn_fn` and
+:func:`rope_rotate`). The FFN is a SwiGLU in the leading
+``num_dense_layers`` and ``parallel/moe.py``'s dropless MoE after them;
+the head is tied to the embedding (``nll_chunked``). Every remat mode
+checkpoints each layer of either kind with the same policies as the GPT
+blocks (``_producing("qkv")``, ``"attn_out"``, ``"mlp_hidden"`` on the
+dense SwiGLU's gate and up product).
 
 Plain-tree params like the other models, so the whole LM lives in one
 ``DenseTable``: pre-LN blocks, learned positional embeddings (or RoPE), a
@@ -85,6 +102,7 @@ from minips_tpu_torch.parallel.mesh import (DeviceLike, Group,
                                             reduce_from_group,
                                             resolve_device, world)
 from minips_tpu_torch.parallel.ring_attention import reference_attention
+from minips_tpu_torch.utils.profiling import Annotation
 from minips_tpu_torch.utils.tree import (tree_leaves, tree_map,
                                         value_and_grad)
 
@@ -754,3 +772,202 @@ def grad_fn(params, batch, *, heads=4, attn_impl="reference", remat=False,
     return value_and_grad(lambda p: loss(
         p, batch, heads=heads, attn_impl=attn_impl, remat=remat,
         head_chunk=head_chunk, dropout=dropout), params)
+
+
+# --------------------------------------------------------------------- LFM2
+def _lfm2_ffn_kind(config: dict, i: int) -> str:
+    """``"dense"`` for the leading ``num_dense_layers``, else ``"moe"``."""
+    return "dense" if i < config["num_dense_layers"] else "moe"
+
+
+def lfm2_init(gen: torch.Generator, config: dict,
+              device: DeviceLike = None) -> dict:
+    """LFM2's parameter tree from its published configuration (HF's
+    ``lfm2_moe`` keys; ``num_experts`` the experts held here, from
+    ``expert_offset``, of ``published_num_experts``), drawn from ``gen``
+    (a ``torch.Generator`` on ``device``) in this order, each matrix
+    normal at fan-in^-1/2 and each norm gain 1: ``tok_emb [V, D]`` (scale
+    D^-1/2), then layer by layer its mixer (conv: ``in_proj [D, 3D]``
+    (B, C, x), ``conv [D, L]`` (fan-in L), ``out_proj [D, D]``; attention:
+    ``wq [D, H·hd]``, ``wkv [D, 2, Hk·hd]``, ``out_proj [H·hd, D]``, the
+    gains ``q_norm``, ``k_norm [hd]``), then its FFN (dense: ``w13 [D,
+    2F]``, ``w2 [F, D]``; MoE: ``parallel/moe.py``'s ``init_dropless``),
+    then its gains ``norm1``, ``norm2``; last ``norm_f``. The expert bias
+    is no parameter (a constant, :func:`lfm2_expert_bias`)."""
+    from minips_tpu_torch.parallel.moe import init_dropless
+
+    device = resolve_device(device)
+    if config["conv_bias"]:
+        raise ValueError("conv_bias true is not supported (LFM2 publishes "
+                         "false)")
+    D, V = config["hidden_size"], config["vocab_size"]
+    H, Hk = config["num_attention_heads"], config["num_key_value_heads"]
+    hd, L = D // H, config["conv_L_cache"]
+    F_dense = config["intermediate_size"]
+
+    def normal(*shape, scale):
+        return torch.randn(shape, generator=gen, device=device) * scale
+
+    def ones(n):
+        return torch.ones(n, device=device)
+
+    params = {"tok_emb": normal(V, D, scale=D ** -0.5), "blocks": []}
+    for i, kind in enumerate(config["layer_types"]):
+        if kind == "conv":
+            blk = {"in_proj": normal(D, 3 * D, scale=D ** -0.5),
+                   "conv": normal(D, L, scale=L ** -0.5),
+                   "out_proj": normal(D, D, scale=D ** -0.5)}
+        elif kind == "full_attention":
+            blk = {"wq": normal(D, H * hd, scale=D ** -0.5),
+                   "wkv": normal(D, 2, Hk * hd, scale=D ** -0.5),
+                   "out_proj": normal(H * hd, D, scale=(H * hd) ** -0.5),
+                   "q_norm": ones(hd), "k_norm": ones(hd)}
+        else:
+            raise ValueError(f"unknown layer type {kind!r}")
+        if _lfm2_ffn_kind(config, i) == "dense":
+            blk["w13"] = normal(D, 2 * F_dense, scale=D ** -0.5)
+            blk["w2"] = normal(F_dense, D, scale=F_dense ** -0.5)
+        else:
+            blk.update(init_dropless(
+                gen, dim=D, hidden=config["moe_intermediate_size"],
+                num_experts=config["published_num_experts"],
+                held=config["num_experts"], device=device))
+        blk["norm1"], blk["norm2"] = ones(D), ones(D)
+        params["blocks"].append(blk)
+    params["norm_f"] = ones(D)
+    return params
+
+
+def lfm2_expert_bias(config: dict, device: DeviceLike = None) -> list:
+    """Each layer's constant expert bias: zeros over the published experts
+    for an MoE layer (the aux-loss-free rule that would update it is in
+    no published configuration), None for the others."""
+    device = resolve_device(device)
+    return [torch.zeros(config["published_num_experts"], device=device)
+            if _lfm2_ffn_kind(config, i) == "moe" else None
+            for i in range(len(config["layer_types"]))]
+
+
+def _rms(x, g, eps: float):
+    """RMSNorm in float32: ``x · rsqrt(mean(x²) + eps) · g``."""
+    x = x.float()
+    return x * torch.rsqrt(x.pow(2).mean(-1, keepdim=True) + eps) * g.float()
+
+
+def _lfm2_conv(a, blk, compute_dtype):
+    """The gated short-conv mixer: ``[B | C | x] = in_proj(a)``, ``u = B ⊙
+    x``, a depthwise causal conv of width L over ``u`` (three shifted
+    multiply-adds at L 3, zero before t = 0), ``out_proj(C ⊙ conv)``;
+    the elementwise part in ``compute_dtype``. The span ``conv``."""
+    B, T, D = a.shape
+    with Annotation("conv", a.device):
+        b, c, x = (a.to(compute_dtype)
+                   @ blk["in_proj"].to(compute_dtype)).chunk(3, dim=-1)
+        u = b * x
+        w = blk["conv"].to(u.dtype)
+        L = w.shape[1]
+        conv = u * w[:, L - 1]
+        for j in range(1, L):  # u[t - j], zero before the start
+            conv = conv + F.pad(u, (0, 0, j, 0))[:, :T] * w[:, L - 1 - j]
+        return ((c * conv) @ blk["out_proj"].to(compute_dtype)).float()
+
+
+def _lfm2_attn(a, blk, attn_fn, pos, heads, theta, eps, compute_dtype):
+    """The attention mixer: GQA q/k/v projections, RMSNorm over the head
+    dim on q and k, half-split RoPE at ``theta``, causal attention at
+    scale hd^-1/2 (``attn_fn``), ``out_proj``."""
+    B, T, _ = a.shape
+    x = a.to(compute_dtype)
+    with _producing("qkv"):
+        q = x @ blk["wq"].to(compute_dtype)
+        wkv = blk["wkv"].to(compute_dtype)
+        kv = (x @ wkv.reshape(wkv.shape[0], -1)).view(B, T, 2, -1)
+    hd = q.shape[-1] // heads
+    q = _rms(q.view(B, T, heads, hd), blk["q_norm"], eps).to(compute_dtype)
+    k = _rms(kv[:, :, 0].reshape(B, T, -1, hd), blk["k_norm"],
+             eps).to(compute_dtype)
+    v = kv[:, :, 1].reshape(B, T, -1, hd)
+    o = attn_fn(rope_rotate(q, pos, theta), rope_rotate(k, pos, theta), v)
+    o = checkpoint_name(o.reshape(B, T, -1), "attn_out")
+    return (o.to(compute_dtype) @ blk["out_proj"].to(compute_dtype)).float()
+
+
+def _lfm2_block(h, blk, bias, config, attn_fn, pos, compute_dtype):
+    """One LFM2 layer: ``h += mixer(RMSNorm(h))``, then ``h +=
+    ffn(RMSNorm(h))`` (a SwiGLU, or the dropless MoE when ``bias`` is the
+    layer's expert bias); the residual stream float32."""
+    from minips_tpu_torch.parallel.moe import moe_dropless
+
+    eps = config["norm_eps"]
+    a = _rms(h, blk["norm1"], eps)
+    if "in_proj" in blk:
+        h = h + _lfm2_conv(a, blk, compute_dtype)
+    else:
+        h = h + _lfm2_attn(a, blk, attn_fn, pos,
+                           config["num_attention_heads"],
+                           config["rope_theta"], eps, compute_dtype)
+    a = _rms(h, blk["norm2"], eps)
+    if bias is not None:
+        B, T, D = a.shape
+        y = moe_dropless(
+            blk, a.reshape(B * T, D), expert_offset=config["expert_offset"],
+            k_top=config["num_experts_per_tok"], expert_bias=bias,
+            routed_scale=config["routed_scaling_factor"],
+            compute_dtype=compute_dtype).view(B, T, D)
+    else:
+        hidden = blk["w2"].shape[0]
+        with _producing("mlp_hidden"):
+            z = a.to(compute_dtype) @ blk["w13"].to(compute_dtype)
+        y = ((F.silu(z[..., :hidden]) * z[..., hidden:])
+             @ blk["w2"].to(compute_dtype)).float()
+    return h + y
+
+
+def lfm2_hidden(params, tokens, *, config, expert_bias,
+                compute_dtype=torch.bfloat16, attn_impl="reference",
+                remat=False):
+    """LFM2's final normed hidden state ``[B, T, D]`` float32 of ``tokens
+    [B, T]``: the embedding, the layers of ``config["layer_types"]`` (each
+    checkpointed under ``remat``, as :func:`_forward`'s blocks), then
+    ``norm_f``. ``expert_bias``: :func:`lfm2_expert_bias`."""
+    if not config.get("norm_topk_prob", True):
+        raise ValueError("norm_topk_prob false is not supported")
+    pos = torch.arange(tokens.shape[1], device=tokens.device)
+    attn_fn = _attn_fn(attn_impl)
+    context_fn = _remat_policy(remat) if remat else None
+    h = params["tok_emb"][tokens].float()
+    for blk, bias in zip(params["blocks"], expert_bias):
+        args = (h, blk, bias, config, attn_fn, pos, compute_dtype)
+        if remat:
+            h = checkpoint(_lfm2_block, *args, use_reentrant=False,
+                           context_fn=context_fn or noop_context_fn)
+        else:
+            h = _lfm2_block(*args)
+    return _rms(h, params["norm_f"], config["norm_eps"])
+
+
+def lfm2_apply(params, tokens, *, compute_dtype=torch.bfloat16, **kw):
+    """Logits ``[B, T, vocab]`` float32: :func:`lfm2_hidden` through the
+    head tied to the embedding."""
+    h = lfm2_hidden(params, tokens, compute_dtype=compute_dtype, **kw)
+    return (h.to(compute_dtype)
+            @ params["tok_emb"].T.to(compute_dtype)).float()
+
+
+def lfm2_loss(params, batch, *, compute_dtype=torch.bfloat16, head_chunk=0,
+              **kw):
+    """LFM2's mean next-token cross-entropy on ``batch = {"tokens": [B,
+    T+1]}``, the tied head in sequence chunks of ``head_chunk``
+    (:func:`nll_chunked`) or whole; ``kw`` as :func:`lfm2_hidden`."""
+    toks = batch["tokens"].long()
+    tgt = toks[:, 1:]
+    if not head_chunk:
+        return nll(lfm2_apply(params, toks[:, :-1],
+                              compute_dtype=compute_dtype, **kw), tgt)
+    h = lfm2_hidden(params, toks[:, :-1], compute_dtype=compute_dtype, **kw)
+    return nll_chunked(h, params["tok_emb"], tgt, head_chunk, compute_dtype)
+
+
+def lfm2_grad_fn(params, batch, **kw):
+    """``(loss, grads)`` of :func:`lfm2_loss`, as :func:`grad_fn`."""
+    return value_and_grad(lambda p: lfm2_loss(p, batch, **kw), params)

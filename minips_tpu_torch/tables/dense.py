@@ -18,6 +18,8 @@ fuses pull, gradient, push and update into one call, as the JAX package's
 does, with ``comm`` (the quantized collectives), ``accum``,
 ``compute_dtype``, ``grad_reduce`` and the global-norm clip.
 ``group=None`` is one device holding the one shard, with no collective.
+``capture_step`` captures the fused step as one CUDA graph and replays it
+(``GraphedStep``), on one card.
 
 The optimizer state's leaves follow the JAX table's specs: a 0-d leaf
 (adam's count, a schedule's count) is replicated on every rank; a 1-D leaf
@@ -94,6 +96,27 @@ def _split(vec, shapes):
         out.append(vec[i:i + n].view(s))
         i += n
     return out
+
+
+class GraphedStep:
+    """A step captured by :meth:`DenseTable.capture_step`: call it with a
+    batch to copy the batch in and replay the step; returns the step's
+    loss (a copy: the captured one is overwritten by the next replay)."""
+
+    def __init__(self, graph, static: dict, loss: torch.Tensor):
+        self.graph, self.static, self.loss = graph, static, loss
+
+    def __call__(self, batch: dict) -> torch.Tensor:
+        for k, v in batch.items():
+            self.static[k].copy_(v)
+        self.graph.replay()
+        return self.loss.clone()
+
+    def release(self) -> None:
+        """Free the graph and its memory pool (cudaFree, by empty_cache)."""
+        self.graph.reset()
+        self.graph = self.static = self.loss = None
+        torch.cuda.empty_cache()
 
 
 def cast_floating(tree: PyTree, dtype: Optional[torch.dtype]) -> PyTree:
@@ -297,6 +320,10 @@ class DenseTable:
         gradients in float32 (averaged under ``grad_reduce="mean"``,
         summed under ``"sum"``) before one update.
 
+        ``step(..., donate=True)`` (what :meth:`step_inplace` passes) lets
+        the update write over ``params`` and ``opt_state``; the step is
+        pure without it.
+
         While a profiler runs, the step records the spans ``dense_step``
         (the call), ``dense_step.pull``, ``dense_step.grad`` (``grad_fn``
         and its casts, the microbatch loop under ``accum``) and
@@ -343,7 +370,7 @@ class DenseTable:
 
         dev = self.device
 
-        def step(params, opt_state, batch):
+        def step(params, opt_state, batch, donate=False):
             with Annotation("dense_step", dev):
                 with Annotation("dense_step.pull", dev):
                     full = quantized_all_gather(params, group, comm)
@@ -360,22 +387,72 @@ class DenseTable:
                     g = torch.zeros(padded, dtype=gflat.dtype,
                                     device=gflat.device)
                     g[:n] = gflat
+                    del gflat
+                    # the push returns a buffer of this step's own
                     g = quantized_psum_scatter(g, group, comm)      # push
                     if reduce == "mean":
-                        g = g / shards
-                    updates, opt_state = tx.update(self._clip(g), opt_state,
-                                                   params)
+                        g.div_(shards)
+                    g = self._clip(g)
                     if group is not None:
                         loss = all_reduce_sum(loss.detach(), group) / shards
+                    if donate and tx.update_ is not None:
+                        updates, opt_state = tx.update_(g, opt_state, params)
+                        return params.add_(updates), opt_state, loss
+                    updates, opt_state = tx.update(g, opt_state, params)
                     return params + updates, opt_state, loss
 
         return step
 
     def step_inplace(self, step, batch) -> torch.Tensor:
-        """Run a fused step against the table's own state."""
+        """Run a fused step of :meth:`make_step` against the table's own
+        state, handed to it donated: an updater with an ``update_``
+        (``adam`` at a constant learning rate) writes the new params and
+        moments over the old ones, bit for bit what the pure step returns,
+        so the update peaks at five table-sized vectors and not about
+        eleven (a reference kept to ``params`` or ``opt_state`` across the
+        call sees the new values; copy it to keep the old)."""
         self.params, self.opt_state, loss = step(self.params, self.opt_state,
-                                                 batch)
+                                                 batch, donate=True)
         return loss
+
+    def capture_step(self, step, batch) -> tuple["GraphedStep",
+                                                  torch.Tensor]:
+        """:meth:`step_inplace` of ``step`` captured as one CUDA graph:
+        ``(graphed, loss)``, where ``graphed(batch)`` copies ``batch``
+        into the captured inputs (same keys, shapes and dtypes) and
+        replays the step on the table's own buffers, the same kernels
+        launched as one graph, so that the host's dispatch of each kernel
+        no longer paces the card. This call runs one step on ``batch`` (on
+        a side stream, as capture wants its code warm; ``loss`` is its
+        loss) and captures a second without running it. The step must not
+        wait on the host (no ``.item()``, no shape read from the card) and
+        records no spans or counters when replayed: run eager steps under
+        a profiler, after ``graphed.release()``, which frees the graph's
+        memory pool. A state leaf the update returns anew (Adam's count)
+        is copied over the buffer the graph reads, inside the graph. One
+        CUDA device, no process group."""
+        if self.device.type != "cuda" or self.group is not None:
+            raise ValueError(f"capture_step needs a CUDA table without a "
+                             f"group, not {self.device} with "
+                             f"{self.group!r}")
+        static = {k: v.clone() for k, v in batch.items()}
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(side):
+            loss = self.step_inplace(step, static)
+        torch.cuda.current_stream(self.device).wait_stream(side)
+        torch.cuda.synchronize(self.device)
+        torch.cuda.empty_cache()  # the warm step's cache: the graph's pool
+        # takes its place
+        before = [self.params] + list(self.opt_state)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = self.step_inplace(step, static)
+            for old, new in zip(before, [self.params] + list(self.opt_state)):
+                if new is not old:
+                    old.copy_(new)
+        self.params, self.opt_state = before[0], before[1:]
+        return GraphedStep(graph, static, out), loss
 
     # ------------------------------------------------------------- state I/O
     def state_dict(self) -> dict:

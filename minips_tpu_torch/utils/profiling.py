@@ -36,7 +36,20 @@ Where they are, by name:
 - ``tables/dense.py`` ``make_step``'s step: ``dense_step`` (one call),
   ``dense_step.pull``, ``dense_step.grad`` (``grad_fn`` with its casts; the
   microbatch loop under ``accum``) and ``dense_step.update`` (from the
-  gradient's ravel to the return).
+  gradient's ravel to the return);
+- ``parallel/moe.py`` ``moe_dropless`` (LFM2's MoE layer): ``moe`` (one
+  layer's forward), inside it ``moe.route``, ``moe.dispatch`` (sort,
+  offsets, the row gather), ``moe.experts`` (the grouped GEMMs and SwiGLU)
+  and ``moe.combine``, and the counters ``moe.routes`` (the routes that
+  land on held experts) and ``moe.max_load`` (the busiest held expert's
+  routes), 0-d device tensors, once a layer a step;
+- ``models/transformer.py`` ``_lfm2_conv``: ``conv`` (one gated
+  short-conv mixer, in_proj to out_proj).
+
+The LFM2 spans sit inside the remat checkpoint of their layer, so they
+record the forward and again its recompute, which autograd's engine runs
+in the backward; the rest of the backward runs outside them. The MoE
+counters skip the recompute.
 
 A capture shows each span as a ``user_annotation`` on the host and a
 ``gpu_user_annotation`` on the device. The registry keeps the newest
