@@ -301,6 +301,17 @@ raises on failure:
     its two ``index_add_`` alone (``library_ms``) and whole pushes both
     ways, beside the byte bound; then two steps of the LR + MLP pair at the
     CTR cell's batch and table size, one launch a step.
+34. run right after phase 33: the Adam kernel (``csrc/adam_apply.cu``,
+    ``adam``'s donated update on CUDA float32 tables): three steps on a
+    slice of 2^24 + 3 elements one float into their buffers bitwise equal
+    to the plain version (``update_`` then ``params.add_``), one launch a
+    step; then, at the LM cells' table sizes (1,556,920,000 and
+    2,526,624,512 parameters), one step of the kernel over the whole
+    vectors checked bitwise against the plain version on copies of three
+    slices of the same inputs (the head, the middle or the slice across
+    element 2^31, and the tail), and medians of 30 launches beside the
+    28-byte-a-parameter bound and the plain version's time. Its kernel
+    row's ``launches`` are phase 8's LM steps, one a step.
 
 Before it prints its result, and on every way out, the script stops and
 reaps every process it started that still runs: the launcher's fork
@@ -377,7 +388,15 @@ LSE_TOL = 1e-4  # lse is float32 on both sides
 BF16_FLOPS = 989e12
 DESIGN = {"gather_rows": "simt-vec", "flash_forward": "wgmma",
           "flash_bwd_dq": "wgmma", "flash_bwd_dkv": "wgmma",
-          "row_adagrad": "simt-vec"}
+          "row_adagrad": "simt-vec", "adam_apply": "simt-vec-stream"}
+# phase 34: the Adam kernel at the LM cells' table sizes (GPT-2 XL's and
+# LFM2's held parameters), 28 bytes a parameter; its bitwise check runs on
+# a slice this long, one float into its buffers (the kernel's scalar head),
+# and at each size on copies of slices of ADAM_PART elements
+ADAM_SIZES = {"gpt2_xl": 1_556_920_000, "lfm2_8b_a1b": 2_526_624_512}
+ADAM_SLICE = (1 << 24) + 3
+ADAM_PART = 1 << 22
+ADAM_BYTES_PER_PARAM = 28
 # phase 33: the benchmark's CTR cell, as its configuration and traffic
 # files define it (2^26 x 8 emb rows under row Adagrad, B 131072 x 26
 # fields of Zipf ids)
@@ -1110,6 +1129,110 @@ def row_adagrad_phase(torch, dev, mem_bw) -> dict:
                                ctr}
     del pair
     torch.cuda.empty_cache()
+    return row
+
+
+def adam_apply_phase(torch, dev, mem_bw, lm_launches: int) -> dict:
+    """Phase 34: the Adam kernel (``csrc/adam_apply.cu``) at the LM cells'
+    table sizes, against its plain version, ``adam``'s ``update_`` then
+    ``params.add_``. Its kernel row for the JSON result; ``lm_launches``,
+    the launches of phase 8's LM steps, is the row's ``launches``."""
+    from minips_tpu_torch.ops import adam_apply as aa
+    from minips_tpu_torch.tables.updaters import _adam_count, make_updater
+
+    lr = 1e-3
+    tx = make_updater("adam", lr)
+    gen = torch.Generator(dev).manual_seed(34)
+    before = aa.adam_apply.launches
+
+    def state(n, off=0):
+        """g, params, mu, nu and the count as after some steps, each a view
+        ``off`` floats into its own buffer."""
+        out = [torch.randn(n + off, generator=gen, device=dev)[off:]
+               for _ in range(3)]
+        out.append(torch.rand(n + off, generator=gen, device=dev)[off:])
+        g, p, m, v = out
+        m.mul_(1e-2)
+        v.mul_(1e-4)
+        return g, p, [torch.tensor(9, dtype=torch.int32, device=dev), m, v]
+
+    # bitwise: three steps on a slice, kernel against the plain version
+    g, p, st = state(ADAM_SLICE, off=1)
+    ref_p, ref_st = p.clone(), [x.clone() for x in st]
+    for i in range(3):
+        gi = g * (i + 1)
+        p, st = tx.apply_(gi, st, p)
+        updates, ref_st = tx.update_(gi.clone(), ref_st, ref_p)
+        ref_p.add_(updates)
+    torch.cuda.synchronize()
+    check(aa.adam_apply.launches - before == 3, "adam_apply launched "
+          f"{aa.adam_apply.launches - before} times in 3 steps")
+    check(torch.equal(p, ref_p) and all(torch.equal(a, b)
+                                        for a, b in zip(st, ref_st)),
+          "adam_apply: params or moments differ from the plain update's "
+          "bits")
+    del g, p, st, ref_p, ref_st, updates, gi
+    torch.cuda.empty_cache()
+
+    row = {"name": "adam_apply", "route": "cuda",
+           "source": "minips_tpu_torch/csrc/adam_apply.cu",
+           "replaces": "none: the JAX package leaves Adam to XLA's fusion",
+           "max_abs_err": 0.0, "bitwise_slice": ADAM_SLICE,
+           "bound_by": "bytes", "design": DESIGN["adam_apply"], "sizes": {}}
+    for name, n in ADAM_SIZES.items():
+        g, p, st = state(n)
+        # bitwise at full size: one kernel step over the whole vectors,
+        # the plain version on copies of slices of the same inputs
+        mid = (1 << 31) if n > (1 << 31) else n // 2
+        starts = [0, mid - ADAM_PART // 2, n - ADAM_PART]
+        parts = [[x[lo:lo + ADAM_PART].clone() for x in (g, p, st[1], st[2])]
+                 for lo in starts]
+        count0 = st[0].clone()
+        p, st = tx.apply_(g, st, p)
+        for lo, (gs, ps, ms, vs) in zip(starts, parts):
+            updates, ref = tx.update_(gs, [count0.clone(), ms, vs], ps)
+            ps.add_(updates)
+            hi = lo + ADAM_PART
+            check(torch.equal(p[lo:hi], ps) and torch.equal(st[1][lo:hi], ms)
+                  and torch.equal(st[2][lo:hi], vs)
+                  and torch.equal(st[0], ref[0]),
+                  f"adam_apply at {name}: elements [{lo}, {hi}) differ from "
+                  "the plain update's bits")
+        del parts, gs, ps, ms, vs, updates, ref
+        _, m, v = st
+        _, bc1, bc2 = _adam_count(st[0], 0.9, 0.999, torch.float32)
+
+        def kernel():
+            aa.adam_apply(g, p, m, v, bc1, bc2, b1=0.9, b2=0.999, eps=1e-8,
+                          lr=lr)
+
+        def plain():  # the donated plain update: g is written over
+            updates, _ = tx.update_(g, st, p)
+            p.add_(updates)
+
+        nbytes = ADAM_BYTES_PER_PARAM * n
+        size = {"n": n, "bitwise_parts": [[lo, lo + ADAM_PART]
+                                          for lo in starts],
+                "bytes": nbytes, "ms": time_ms(torch, kernel),
+                "bound_ms": 1e3 * nbytes / mem_bw}
+        size["bound_share"] = size["bound_ms"] / size["ms"]
+        # the plain update holds two more table-sized vectors
+        if torch.cuda.mem_get_info()[0] > 2.2 * 4 * n:
+            size["plain_ms"] = time_ms(torch, plain)
+        else:
+            size["plain_ms"] = "not measured: no room for its temporaries"
+        row["sizes"][name] = size
+        del g, p, st, m, v, bc1, bc2
+        torch.cuda.empty_cache()
+    row["launches"] = lm_launches
+    row["launches_by_path"] = {
+        "lm_steps_phase8": lm_launches, "phase34_bitwise_slice_x3": 3,
+        "phase34_bitwise_full_size": len(ADAM_SIZES),
+        "phase34_timed": aa.adam_apply.launches - before - 3
+        - len(ADAM_SIZES)}
+    for name, size in row["sizes"].items():
+        check(size["bound_share"] <= 1.05, f"adam_apply at {name}: "
+              f"{size['bound_share']:.3f} of the byte bound")
     return row
 
 
@@ -4221,7 +4344,8 @@ def multi_card_main(torch, n: int) -> int:
     for line in cards[:n]:
         print(f"card: {line}", flush=True)
     t0 = time.perf_counter()
-    _build.build_all(["gather_rows", "flash_attn", "row_adagrad"])
+    _build.build_all(["gather_rows", "flash_attn", "row_adagrad",
+                      "adam_apply"])
     print(f"build: {time.perf_counter() - t0:.2f} s", flush=True)
     t0 = time.perf_counter()
     par = run_ranks(parallel_phases, n,
@@ -4308,6 +4432,7 @@ def main() -> int:
     from minips_tpu_torch.data.loader import (BatchIterator,
                                               prefetch_to_device)
     from minips_tpu_torch.ops import _build
+    from minips_tpu_torch.ops.adam_apply import adam_apply
     from minips_tpu_torch.ops.gather import _launcher as gather_launcher
     from minips_tpu_torch.ops.gather import (gather_rows,
                                              gather_rows_reference)
@@ -4324,7 +4449,8 @@ def main() -> int:
 
     # ----------------------------------------------------------- 2. build
     t0 = time.perf_counter()
-    logs = _build.build_all(["gather_rows", "flash_attn", "row_adagrad"])
+    logs = _build.build_all(["gather_rows", "flash_attn", "row_adagrad",
+                             "adam_apply"])
     build_s = time.perf_counter() - t0
     print(f"build: {build_s:.2f} s for {sorted(logs) or 'cached'}",
           flush=True)
@@ -4627,10 +4753,14 @@ def main() -> int:
     gather_rows.launches = 0
     for name in flash:
         getattr(tfa, name).launches = 0
+    adam_apply.launches = 0
     lm_losses = run_lm_steps(lm, LM_CHAIN)
     torch.cuda.synchronize()
     lm_launches = {name: getattr(tfa, name).launches for name in flash}
     lm_launches["gather_rows"] = gather_rows.launches
+    lm_adam = adam_apply.launches
+    check(lm_adam == LM_CHAIN, f"adam_apply launched {lm_adam} times in "
+          f"{LM_CHAIN} LM steps")
     lm_losses = [float(x) for x in lm_losses]
     check(all(math.isfinite(x) for x in lm_losses),
           f"non-finite LM loss: {lm_losses}")
@@ -4792,6 +4922,11 @@ def main() -> int:
     row_adagrad = row_adagrad_phase(torch, dev, mem_bw)
     print(f"row_adagrad at the CTR push ({time.perf_counter() - t0:.1f} s): "
           + json.dumps(row_adagrad), flush=True)
+    # ----------------------- 34. the Adam kernel at the LM cells' table sizes
+    t0 = time.perf_counter()
+    adam_row = adam_apply_phase(torch, dev, mem_bw, lm_adam)
+    print(f"adam_apply at the LM tables ({time.perf_counter() - t0:.1f} s): "
+          + json.dumps(adam_row), flush=True)
     # ------------------------------------------ 10. LM low-precision state
     from minips_tpu_torch.tables import updaters as tupd
 
@@ -5370,6 +5505,7 @@ def main() -> int:
             tooling["32a_lm"]["launches"][k["name"]]
 
     kernels.append(row_adagrad)  # K2-K4 above are kernels[1:4]
+    kernels.append(adam_row)
 
     print("processes still running at the end, killed: "
           + json.dumps(stop_children()), flush=True)

@@ -322,13 +322,18 @@ class DenseTable:
 
         ``step(..., donate=True)`` (what :meth:`step_inplace` passes) lets
         the update write over ``params`` and ``opt_state``; the step is
-        pure without it.
+        pure without it. A donated step whose updater has ``apply_``
+        (``adam`` at a constant learning rate: on the card one CUDA pass,
+        ``ops/adam_apply.py``) hands it the gradient; under ``group=None``,
+        with the float32 wire and no clip, the raveled gradient itself,
+        with no padded copy and no divide by the one shard.
 
         While a profiler runs, the step records the spans ``dense_step``
         (the call), ``dense_step.pull``, ``dense_step.grad`` (``grad_fn``
         and its casts, the microbatch loop under ``accum``) and
         ``dense_step.update`` (the gradient's ravel to the return) of
-        ``utils/profiling.py``.
+        ``utils/profiling.py``; the kernel behind ``apply_`` adds the
+        elements it updated to the counter ``dense.fused_update``.
 
         The JAX function's ``batch_spec`` and ``jit`` have no
         counterpart: each rank is handed its own batch shard, and PyTorch
@@ -369,6 +374,8 @@ class DenseTable:
             return loss_sum / accum, gsum / accum
 
         dev = self.device
+        fused_at_one_shard = (tx.apply_ is not None and group is None
+                              and comm == "float32" and not self._clip_norm)
 
         def step(params, opt_state, batch, donate=False):
             with Annotation("dense_step", dev):
@@ -384,6 +391,11 @@ class DenseTable:
                     if accum == 1:
                         gflat = ravel(grads)[0]
                         del grads  # free the tree before the update's buffers
+                    if donate and fused_at_one_shard:
+                        # the push is the identity, the mean a divide by
+                        # one and the table unpadded: the update reads the
+                        # raveled gradient as it is
+                        return (*tx.apply_(gflat, opt_state, params), loss)
                     g = torch.zeros(padded, dtype=gflat.dtype,
                                     device=gflat.device)
                     g[:n] = gflat
@@ -395,9 +407,8 @@ class DenseTable:
                     g = self._clip(g)
                     if group is not None:
                         loss = all_reduce_sum(loss.detach(), group) / shards
-                    if donate and tx.update_ is not None:
-                        updates, opt_state = tx.update_(g, opt_state, params)
-                        return params.add_(updates), opt_state, loss
+                    if donate and tx.apply_ is not None:
+                        return (*tx.apply_(g, opt_state, params), loss)
                     updates, opt_state = tx.update(g, opt_state, params)
                     return params + updates, opt_state, loss
 
@@ -405,12 +416,13 @@ class DenseTable:
 
     def step_inplace(self, step, batch) -> torch.Tensor:
         """Run a fused step of :meth:`make_step` against the table's own
-        state, handed to it donated: an updater with an ``update_``
-        (``adam`` at a constant learning rate) writes the new params and
-        moments over the old ones, bit for bit what the pure step returns,
-        so the update peaks at five table-sized vectors and not about
-        eleven (a reference kept to ``params`` or ``opt_state`` across the
-        call sees the new values; copy it to keep the old)."""
+        state, handed to it donated: an updater with an ``apply_`` (``adam``
+        at a constant learning rate) writes the new params and moments over
+        the old ones, bit for bit what the pure step returns, so the update
+        peaks at four or five table-sized vectors and not about eleven (a
+        reference kept to ``params`` or ``opt_state`` across the call sees
+        the new values; copy it to keep the old). Any other updater runs
+        the pure step."""
         self.params, self.opt_state, loss = step(self.params, self.opt_state,
                                                  batch, donate=True)
         return loss

@@ -23,7 +23,13 @@ gradient and the state it is handed (both donated, as ``jit``'s
 ``donate_argnums`` donates them), so that the update of a large table
 peaks at five table-sized vectors (params, moments, gradient, one
 temporary) in place of about eleven (``adam`` with a constant learning
-rate has one; ``DenseTable.step_inplace`` uses it).
+rate has one), and ``apply_``: the whole donated step, ``update_`` and
+``params + updates`` written over the params and the state. ``adam`` at a
+constant learning rate has it (:func:`fused_adam`): on the card one CUDA
+pass over float32 tensors (``ops/adam_apply.py``), bit for bit
+``update_`` then ``params.add_``, which it runs anywhere else.
+``DenseTable.step_inplace`` takes ``apply_`` where there is one, else
+the pure ``update``.
 
 ``adam_bf16`` and ``adam8`` are the JAX package's optimizer-state memory
 levers: Adam whose moments are stored in bfloat16, or as blockwise uint8
@@ -41,6 +47,10 @@ from typing import Callable, NamedTuple, Optional, Union
 
 import numpy as np
 import torch
+
+from minips_tpu_torch.ops.adam_apply import adam_apply
+from minips_tpu_torch.utils.profiling import count as count_elements
+from minips_tpu_torch.utils.profiling import tracing
 
 UPDATERS = ("sgd", "adagrad", "adam", "adamw", "adam_bf16", "adam8")
 
@@ -66,6 +76,11 @@ class Updater(NamedTuple):
     # handed (donated); None where the transform has no such form
     update_: Optional[Callable[[torch.Tensor, list, torch.Tensor],
                                tuple[torch.Tensor, list]]] = None
+    # (g, state, params) -> (params, state): update_ and params + updates,
+    # written over the params and the state. None where there is no such
+    # form
+    apply_: Optional[Callable[[torch.Tensor, list, torch.Tensor],
+                              tuple[torch.Tensor, list]]] = None
 
 
 def _per_key(new: list, old: list, mask: torch.Tensor) -> list:
@@ -159,6 +174,15 @@ def scale_by_rss(initial_accumulator_value: float = 0.1,
         _per_key)
 
 
+def _adam_count(count: torch.Tensor, b1: float, b2: float,
+                dtype: torch.dtype):
+    """Adam's count advanced (saturating) and its bias corrections
+    ``1 - b1 ** t`` and ``1 - b2 ** t``, 0-d tensors of ``dtype``."""
+    count = _safe_increment(count)
+    t = count.to(torch.float32)
+    return count, (1 - b1 ** t).to(dtype), (1 - b2 ** t).to(dtype)
+
+
 def scale_by_adam(b1: float = 0.9, b2: float = 0.999,
                   eps: float = 1e-8) -> Updater:
     """optax.scale_by_adam: int32 ``count``, bias correction on both
@@ -185,16 +209,47 @@ def scale_by_adam(b1: float = 0.9, b2: float = 0.999,
         torch.mul(g, g, out=nu)
         torch.mul(nu, 1 - b2, out=g)
         torch.add(g, x, out=nu)                 # (1 - b2) g² + b2 nu
-        count = _safe_increment(count)
-        t = count.to(torch.float32)
-        torch.div(nu, (1 - b2 ** t).to(nu.dtype), out=x)
+        count, bc1, bc2 = _adam_count(count, b1, b2, nu.dtype)
+        torch.div(nu, bc2, out=x)
         torch.sqrt(x, out=g)
         torch.add(g, eps, out=x)
-        torch.div(mu, (1 - b1 ** t).to(mu.dtype), out=g)
+        torch.div(mu, bc1, out=g)
         return g.div_(x), [count, mu, nu]
     return Updater(
         lambda p: [_count0(p), torch.zeros_like(p), torch.zeros_like(p)],
         update, 3, _count_then_per_key, update_)
+
+
+def _kernel_takes(*tensors: torch.Tensor) -> bool:
+    """Float32 tensors on the card: what the Adam kernel takes."""
+    return all(t.is_cuda and t.dtype == torch.float32 for t in tensors)
+
+
+def fused_adam(b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8, *,
+               lr: float) -> Updater:
+    """``chain(scale_by_adam(b1, b2, eps), scale_by_learning_rate(lr))``
+    at a constant ``lr``, with ``apply_``: for float32 tensors on the card
+    one launch of ``ops/adam_apply.py``'s kernel, which reads the
+    gradient, params and moments once and writes the params and moments
+    once; for any others ``update_`` then ``params.add_``, the plain
+    version the kernel matches bit for bit. While a profiler runs, each
+    launch adds the elements it updated to the counter
+    ``dense.fused_update``."""
+    tx = chain(scale_by_adam(b1, b2, eps), scale_by_learning_rate(lr))
+
+    def apply_(g, state, params):
+        count, mu, nu = state
+        if _kernel_takes(g, params, mu, nu):
+            count, bc1, bc2 = _adam_count(count, b1, b2, torch.float32)
+            adam_apply(g, params, mu, nu, bc1, bc2, b1=b1, b2=b2, eps=eps,
+                       lr=lr)
+            if tracing():
+                count_elements("dense.fused_update", params.numel())
+            return params, [count, mu, nu]
+        updates, state = tx.update_(g, state, params)
+        return params.add_(updates), state
+
+    return tx._replace(apply_=apply_)
 
 
 def _f32(x: float) -> float:
@@ -484,8 +539,10 @@ def make_updater(name: str, lr: LearningRate, **kwargs) -> Updater:
         parts = [scale_by_rss(kwargs.get("initial_accumulator_value", 0.1)),
                  scale_by_learning_rate(lr)]
     elif name == "adam":
-        parts = [scale_by_adam(kwargs.get("b1", 0.9), kwargs.get("b2", 0.999)),
-                 scale_by_learning_rate(lr)]
+        b1, b2 = kwargs.get("b1", 0.9), kwargs.get("b2", 0.999)
+        if not callable(lr) and not clip:
+            return fused_adam(b1, b2, lr=lr)
+        parts = [scale_by_adam(b1, b2), scale_by_learning_rate(lr)]
     elif name == "adamw":
         wd = kwargs.get("weight_decay", 0.01)
         mask: Optional[torch.Tensor] = kwargs.get("decay_mask")
